@@ -41,3 +41,9 @@ import pytest
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with CUDA; skipped without one"
+    )
