@@ -9,14 +9,24 @@ Phases (any failure exits nonzero, before the result line):
 
 1. Device: the card's name and ``nvidia-smi`` name and power limit; CUDA
    must be available.
-2. Build: compile icsg3d_torch/csrc/conv3d.cu for sm_90a (nvcc, ctypes).
-3. Kernel vs plain: every 3x3x3 conv shape of the generation path at
-   batch 20, with its path epilogue, against ``conv3d_same_reference``
-   (F.conv3d in f32 on the same bf16 operands, TF32 off).  Bound on
-   max|err| / max|ref|: 1e-2 for bf16 outputs, 1e-4 for the f32 output.
-   Times are CUDA-event medians of 10 runs, for the kernel, the plain
-   version, and cuDNN in bf16 for scale.
-4. Main path: ``icsg3d_torch.apps.generate.main`` on a synthetic 32^3
+2. Build: compile icsg3d_torch/csrc/conv3d.cu and conv3d_dw.cu for sm_90a
+   (one nvcc per source, started together; ctypes).
+3. Kernel vs plain, at batch 20, each against its plain version on the
+   same operands (TF32 off), with the kernel's, the plain version's and
+   one PyTorch library call's CUDA-event medians of 10 runs, and the
+   bound (the larger of bytes / 3.35 TB/s and FLOPs / the H100's dense
+   peak: 989.4 TFLOP/s bf16, 66.9 TFLOP/s f32):
+   - forward: every 3x3x3 conv shape of the generation path with its path
+     epilogue, then every forward of the training step (epilogue
+     ``bias``), against ``conv3d_same_reference``; library F.conv3d;
+   - K1 as dx: the 18 input-gradient convs of a training step, against
+     ``conv3d_dx_reference``; library torch.nn.grad.conv3d_input;
+   - K2: the 10 VAE weight gradients, against ``conv3d_dw_reference``;
+     library torch.nn.grad.conv3d_weight.
+   Bound on max|err| / max|ref|: 1e-2 for bf16 outputs, 1e-4 for f32
+   outputs, 1e-3 for dW (f32 out, but sums of 10^3..10^6 bf16 products
+   taken in another order).
+4. Generation: ``icsg3d_torch.apps.generate.main`` on a synthetic 32^3
    GridDataset with seeded full-width weights (.npz), 40 samples at batch
    20, once with ``--fused`` and once on the host watershed path.  Checks
    40 records, finite lattices, and that the conv kernel was launched
@@ -25,6 +35,20 @@ Phases (any failure exits nonzero, before the result line):
    CPU (plain versions), same weights and latents.  Lattices agree to
    1e-2 relative; extracted atoms agree wherever the masks agree, and the
    card's extraction of the CPU's own masks equals the CPU's exactly.
+6. Training: ``icsg3d_torch.apps.train_vae.main`` at production width
+   (32^3 x 4, filters 16-128, latent 256, the seeded 95-class U-Net for the
+   DFC loss, batch 20) on 100 synthetic parents with ``--nrot 0`` (80
+   train = 4 steps, 20 val = 1 batch), 2 epochs.  Checks a finite loss
+   every epoch, history.json, and the launch counts: 28 forward, 18 dx
+   and 10 dW per train step, 28 forward per eval step.  Then generate
+   ``--fused`` from the trained checkpoint directory.
+7. Train step: the counts of one train step and one eval step alone; ms
+   per step by stage (VAE forward, perceptual forwards and loss,
+   backward, Adam) and grids/s (CUDA events); one torch.profiler step.
+8. GPU vs CPU for one train step (batch 2, same weights and noise): loss
+   within 2e-2 relative, and the cosine of the first and last VAE conv's
+   weight gradients at least 0.95 (bf16 activations and input gradients
+   through ~20 convs on the card, f32 on the CPU).
 
 It imports nothing of JAX.  The last two stdout lines are the kernels
 JSON object and then ``{"ok": true, "device": {...}}``.
@@ -76,11 +100,60 @@ CONV_SHAPES = [
     ("unet", 128, 128, 32, "relu_affine", "bf16", "bf16"),
 ]
 
-# The TPU kernels the one CUDA kernel replaces, by epilogue family.
+# The 3x3x3 convs of one DFC-VAE train step: (name, Cin, Cout, edge, dtype).
+VAE_CONVS = [
+    ("vae.enc.Conv_0", 14, 16, 32, "bf16"),
+    ("vae.enc.Conv_1", 16, 32, 16, "bf16"),
+    ("vae.enc.Conv_2", 32, 64, 8, "bf16"),
+    ("vae.enc.Conv_3", 64, 128, 4, "bf16"),
+    ("vae.enc.Conv_4", 128, 4, 2, "bf16"),
+    ("vae.dec.Conv_0", 4, 128, 4, "bf16"),
+    ("vae.dec.Conv_1", 128, 64, 8, "bf16"),
+    ("vae.dec.Conv_2", 64, 32, 16, "bf16"),
+    ("vae.dec.Conv_3", 32, 16, 32, "bf16"),
+    ("vae.dec.output", 16, 4, 32, "f32"),
+]
+UNET_PREFIX = [  # the perceptual forward, cut at conv9 (taps 3/5/7/9)
+    ("unet.conv1", 4, 32, 32, "bf16"),
+    ("unet.conv2", 32, 64, 32, "bf16"),
+    ("unet.conv3", 64, 64, 16, "bf16"),
+    ("unet.conv4", 64, 128, 16, "bf16"),
+    ("unet.conv5", 128, 128, 8, "bf16"),
+    ("unet.conv6", 128, 256, 8, "bf16"),
+    ("unet.conv7", 256, 512, 4, "bf16"),
+    ("unet.conv8", 512, 512, 4, "bf16"),
+    ("unet.conv9", 768, 512, 8, "bf16"),
+]
+# forwards of a train step: the VAE, then the U-Net prefix twice
+TRAIN_FWD_SHAPES = [(n, ci, co, e, "bias", dt, dt)
+                    for n, ci, co, e, dt in VAE_CONVS + UNET_PREFIX]
+# input gradients: the U-Net prefix (to reach the reconstruction) and every
+# VAE conv but the encoder's first, whose input is data
+DX_SHAPES = UNET_PREFIX[::-1] + VAE_CONVS[:0:-1]
+DW_SHAPES = VAE_CONVS  # weight gradients: the VAE only (the U-Net is frozen)
+FWD_PER_STEP = len(VAE_CONVS) + 2 * len(UNET_PREFIX)  # 28, eval steps too
+DX_PER_STEP, DW_PER_STEP = len(DX_SHAPES), len(DW_SHAPES)  # 18, 10
+
+TRAIN_PARENTS, TRAIN_EPOCHS = 100, 2  # 80 train (4 steps) + 20 val per epoch
+
+# The H100 SXM's dense peaks and memory rate (NVIDIA's data sheet).
+PEAK_FLOPS = {"bf16": 989.4e12, "f32": 66.9e12}
+MEM_BYTES_PER_S = 3.35e12
+ITEMSIZE = {"bf16": 2, "f32": 4}
+
+FOLDED = ("affine_leaky", "relu_affine", "affine_relu")
+# (name, source, TPU kernel it replaces, rows it covers)
 KERNEL_ENTRIES = [
-    ("conv3d_same[bias]", ("bias",), "icsg3d_tpu/ops/lowc_conv.py:110"),
-    ("conv3d_same[folded_bn]", ("affine_leaky", "relu_affine", "affine_relu"),
-     "icsg3d_tpu/ops/pallas_conv.py:39"),
+    ("conv3d_same[bias]", "icsg3d_torch/csrc/conv3d.cu",
+     "icsg3d_tpu/ops/lowc_conv.py:110", lambda r: r["pass"] == "fwd"
+     and r["epilogue"] == "bias"),
+    ("conv3d_same[folded_bn]", "icsg3d_torch/csrc/conv3d.cu",
+     "icsg3d_tpu/ops/pallas_conv.py:39", lambda r: r["pass"] == "fwd"
+     and r["epilogue"] in FOLDED),
+    ("conv3d_same[dx]", "icsg3d_torch/csrc/conv3d.cu",
+     "icsg3d_tpu/ops/lowc_conv.py:549", lambda r: r["pass"] == "dx"),
+    ("conv3d_dw", "icsg3d_torch/csrc/conv3d_dw.cu",
+     "icsg3d_tpu/ops/lowc_conv.py:289", lambda r: r["pass"] == "dw"),
 ]
 
 # 3x3x3 convs per generation run: the encoder once (4 blocks + Conv_4),
@@ -140,15 +213,39 @@ def phase_device():
 
 
 def phase_build():
+    from concurrent.futures import ThreadPoolExecutor
+
     from icsg3d_torch.kernels import conv3d as k
+    from icsg3d_torch.kernels import conv3d_dw as kdw
 
     t0 = time.perf_counter()
-    path = k.build()
-    k.load()
-    print(f"[build] {path.name} in {time.perf_counter() - t0:.2f} s")
+    mods = (k, kdw)
+    with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, at once
+        libs = list(pool.map(lambda m: m.load(), mods))
+    print(f"[build] {', '.join(os.path.basename(lib._name) for lib in libs)} in "
+          f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
 
 
-def phase_kernels(card: str):
+def bound_ms(pas: str, cin: int, cout: int, edge: int, idt: str, odt: str):
+    """The least time the card could take for one conv pass at batch
+    BATCH: the larger of its FLOPs over the dense peak of its input type
+    and its bytes (x read once, the other activation read (dw) or written
+    (fwd, dx) once, the weights) over the memory rate.  Returns (ms,
+    "operations" or "bytes")."""
+    vox = BATCH * edge ** 3
+    flops = 2 * vox * 27 * cin * cout
+    i, o, w = ITEMSIZE[idt], ITEMSIZE[odt], 27 * cin * cout
+    if pas == "fwd":
+        nbytes = vox * cin * i + vox * cout * o + w * i
+    elif pas == "dx":
+        nbytes = vox * cout * i + vox * cin * o + w * i
+    else:  # dw: x and g read, dW written in f32
+        nbytes = vox * cin * i + vox * cout * i + w * 4
+    t_ops, t_bytes = flops / PEAK_FLOPS[idt], nbytes / MEM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_kernels(card: str, shapes):
     import torch
     import torch.nn.functional as F
 
@@ -159,8 +256,8 @@ def phase_kernels(card: str):
     rows = []
     print(f"[kernels] batch {BATCH}, card: {card}")
     print("  model        Cin->Cout @edge  epilogue      out   max_abs_err  "
-          "rel_err   kernel_ms  plain_ms  cudnn_bf16_ms")
-    for model, cin, cout, edge, epi, idt, odt in CONV_SHAPES:
+          "rel_err   kernel_ms  plain_ms  cudnn_ms  bound_ms")
+    for model, cin, cout, edge, epi, idt, odt in shapes:
         x = torch.randn(BATCH, edge, edge, edge, cin, device="cuda",
                         generator=gen).to(dt[idt])
         w = (torch.randn(3, 3, 3, cin, cout, device="cuda", generator=gen)
@@ -192,16 +289,87 @@ def phase_kernels(card: str):
             return k.apply_epilogue(y.float() + b, epi, scale, shift).to(dt[odt])
 
         cudnn_ms = cuda_median_ms(cudnn)
+        bms, bby = bound_ms("fwd", cin, cout, edge, idt, odt)
         print(f"  {model:12s} {cin:4d}->{cout:<4d}@{edge:<3d} {epi:13s} {odt:4s} "
               f"{abs_err:11.3e} {rel_err:9.2e} {ms:10.4f} {plain_ms:9.4f} "
-              f"{cudnn_ms:10.4f}")
+              f"{cudnn_ms:9.4f} {bms:9.4f} {bby}")
         rows.append(dict(model=model, cin=cin, cout=cout, edge=edge, epilogue=epi,
                          abs_err=abs_err, ms=ms, plain_ms=plain_ms,
-                         cudnn_ms=cudnn_ms))
+                         library_ms=cudnn_ms, bound_ms=bms, bound_by=bby,
+                         **{"pass": "fwd"}))
     print(f"  total over the shapes: kernel {sum(r['ms'] for r in rows):.3f} ms, "
-          f"plain {sum(r['plain_ms'] for r in rows):.3f} ms, cuDNN bf16 "
-          f"{sum(r['cudnn_ms'] for r in rows):.3f} ms")
+          f"plain {sum(r['plain_ms'] for r in rows):.3f} ms, cuDNN "
+          f"{sum(r['library_ms'] for r in rows):.3f} ms, bound "
+          f"{sum(r['bound_ms'] for r in rows):.3f} ms")
     del x, w, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_backward_kernels(card: str):
+    """K1 as dx at the 18 input-gradient shapes and K2 at the 10 weight-
+    gradient shapes of a train step, at batch BATCH."""
+    import torch
+
+    from icsg3d_torch.kernels import conv3d as k
+    from icsg3d_torch.kernels import conv3d_dw as kdw
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    rows = []
+    print(f"[backward-kernels] batch {BATCH}, card: {card}")
+    print("  pass conv            fwd Cin->Cout @edge type  max_abs_err  rel_err  "
+          "bound    kernel_ms  plain_ms  library_ms  bound_ms")
+    for pas, shapes in (("dx", DX_SHAPES), ("dw", DW_SHAPES)):
+        for name, cin, cout, edge, idt in shapes:
+            t = dt[idt]
+            shape = (BATCH, edge, edge, edge)
+            g = torch.randn(*shape, cout, device="cuda", generator=gen).to(t)
+            if pas == "dx":
+                w = (torch.randn(3, 3, 3, cin, cout, device="cuda", generator=gen)
+                     / (27 * cout) ** 0.5).to(t)
+                args, run, plain = (g, w), k.conv3d_dx_cuda, k.conv3d_dx_reference
+                wc = w.permute(4, 3, 0, 1, 2).contiguous(
+                    memory_format=torch.channels_last_3d)
+                gc = g.permute(0, 4, 1, 2, 3)  # channels_last_3d view, no copy
+
+                def library():
+                    return torch.nn.grad.conv3d_input(
+                        (BATCH, cin, edge, edge, edge), wc, gc, padding=1)
+            else:
+                x = torch.randn(*shape, cin, device="cuda", generator=gen).to(t)
+                args, run, plain = (x, g), kdw.conv3d_dw_cuda, kdw.conv3d_dw_reference
+                xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+
+                def library():
+                    return torch.nn.grad.conv3d_weight(
+                        xc, (cout, cin, 3, 3, 3), gc, padding=1)
+            got = run(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            abs_err = float((got.float() - ref.float()).abs().max())
+            rel_err = abs_err / max(float(ref.float().abs().max()), 1e-30)
+            bound = 1e-3 if pas == "dw" else (1e-2 if idt == "bf16" else 1e-4)
+            check(got.shape == ref.shape and bool(torch.isfinite(got).all()),
+                  f"{pas} {name}: shape {tuple(got.shape)} or non-finite output")
+            check(rel_err <= bound, f"{pas} {name} {cin}->{cout}@{edge}: rel err "
+                  f"{rel_err:.3e} > {bound:g}")
+            ms = cuda_median_ms(lambda: run(*args))
+            plain_ms = cuda_median_ms(lambda: plain(*args))
+            library_ms = cuda_median_ms(library)
+            bms, bby = bound_ms(pas, cin, cout, edge, idt, idt)
+            print(f"  {pas:4s} {name:15s} {cin:4d}->{cout:<4d}@{edge:<3d} {idt:4s} "
+                  f"{abs_err:11.3e} {rel_err:8.2e} {bound:6g} {ms:10.4f} "
+                  f"{plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}")
+            rows.append(dict(model=name, cin=cin, cout=cout, edge=edge, abs_err=abs_err,
+                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                             bound_ms=bms, bound_by=bby, epilogue=None,
+                             **{"pass": pas}))
+        mine = [r for r in rows if r["pass"] == pas]
+        print(f"  {pas} total: kernel {sum(r['ms'] for r in mine):.3f} ms, plain "
+              f"{sum(r['plain_ms'] for r in mine):.3f} ms, library "
+              f"{sum(r['library_ms'] for r in mine):.3f} ms, bound "
+              f"{sum(r['bound_ms'] for r in mine):.3f} ms")
     torch.cuda.empty_cache()
     return rows
 
@@ -391,6 +559,265 @@ def phase_cpu_parity(vae, unet):
           f"from own masks gpu {int(g['valid'].sum())} cpu {int(c['valid'].sum())}")
 
 
+def write_train_dataset(path: str):
+    """TRAIN_PARENTS Gaussian-blob densities at 32^3 with lattice lengths
+    (so ``--nrot 0`` rebuilds the coordinate channels on the card) and the
+    matching coordinate grids (which generate reads)."""
+    import numpy as np
+
+    from icsg3d_torch.data.store import GridDataset
+
+    rng = np.random.default_rng(SEED + 4)
+    n, eps = TRAIN_PARENTS, 0.25
+    g = np.mgrid[:D, :D, :D].astype(np.float32)
+    density = np.zeros((n, D, D, D), np.float32)
+    for i in range(n):
+        for c in rng.uniform(6, D - 6, (int(rng.integers(2, 6)), 3)):
+            density[i] += np.exp(-((g - c[:, None, None, None]) ** 2).sum(0) / 4.5)
+    abc = rng.uniform(3.5, 7.0, (n, 3)).astype(np.float32)
+    dv = abc * (1 + 2 * eps) / D
+    coords = np.moveaxis(g, 0, -1)[None] * dv[:, None, None, None, :]
+    lattice = np.concatenate([abc, np.full((n, 3), 90.0, np.float32)], axis=1)
+    return GridDataset.write(path, [f"par-{i}" for i in range(n)], {
+        "density": density, "coords": coords.astype(np.float32),
+        "lattice": lattice, "target": rng.standard_normal(n).astype(np.float32),
+    })
+
+
+def reset_counts() -> None:
+    from icsg3d_torch.kernels import conv3d as k
+    from icsg3d_torch.kernels import conv3d_dw as kdw
+
+    k.reset_launches()
+    kdw.reset_launches()
+
+
+def read_counts() -> dict:
+    from icsg3d_torch.kernels import conv3d as k
+    from icsg3d_torch.kernels import conv3d_dw as kdw
+
+    by = dict(k.launches_by_epilogue)
+    return {"fwd": k.launches, "bias": by["bias"],
+            "folded": sum(by[e] for e in FOLDED), "dx": k.launches_dx,
+            "dw": kdw.launches}
+
+
+def phase_train(tmp: str, card: str):
+    """``apps.train_vae.main`` at production width, then ``apps.generate``
+    from the checkpoint directory it wrote."""
+    import numpy as np
+
+    from icsg3d_torch.apps import generate, train_vae
+
+    data = os.path.join(tmp, "train-data")
+    write_train_dataset(data)
+    ckpt = os.path.join(tmp, "vae-ckpt")
+    unet_npz = os.path.join(tmp, "unet.npz")
+    argv = ["--data", data, "--unet-ckpt", unet_npz, "--epochs", str(TRAIN_EPOCHS),
+            "--batch-size", str(BATCH), "--nrot", "0", "--device", DEVICE,
+            "--ckpt", ckpt, "--seed", str(SEED)]
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = train_vae.main(argv)
+    sync()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    n_train = int(0.8 * TRAIN_PARENTS) // BATCH
+    n_val = (TRAIN_PARENTS - int(0.8 * TRAIN_PARENTS)) // BATCH
+    check(len(hist) == TRAIN_EPOCHS, f"train: {len(hist)} epochs of history")
+    for e, h in enumerate(hist):
+        check(h["steps"] == n_train, f"train epoch {e}: {h['steps']} steps")
+        for split in ("train", "val"):
+            check(all(np.isfinite(v) for v in h[split].values()),
+                  f"train epoch {e}: non-finite {split} metrics {h[split]}")
+    with open(os.path.join(ckpt, "history.json")) as f:
+        check(len(json.load(f)) == TRAIN_EPOCHS, "history.json is incomplete")
+    want = {"fwd": TRAIN_EPOCHS * (n_train + n_val) * FWD_PER_STEP,
+            "dx": TRAIN_EPOCHS * n_train * DX_PER_STEP,
+            "dw": TRAIN_EPOCHS * n_train * DW_PER_STEP}
+    for key, n in want.items():
+        check(counts[key] == n, f"train: {key} launches {counts[key]}, want {n} "
+              f"({TRAIN_EPOCHS} epochs x ({n_train} train + {n_val} eval) steps)")
+    losses = [round(h["train"]["loss"], 4) for h in hist]
+    print(f"[train] train_vae.main: {TRAIN_EPOCHS} epochs x {n_train} steps + "
+          f"{n_val} val batch at batch {BATCH} in {secs:.3f} s ({card}); epoch "
+          f"times {[round(h['time'], 3) for h in hist]} s; train loss {losses}; "
+          f"launches {counts} = {want} expected")
+
+    out = os.path.join(tmp, "gen-trained")
+    sync()
+    reset_counts()
+    generate.main(["--data", data, "--base", "par-0", "--vae-ckpt", ckpt,
+                   "--unet-ckpt", unet_npz, "--nsamples", str(BATCH),
+                   "--batch-size", str(BATCH), "--device", DEVICE, "--fused",
+                   "--output", out])
+    sync()
+    gen_counts = read_counts()
+    with open(os.path.join(out, "results.json")) as f:
+        rows = json.load(f)
+    lat = np.asarray([r["lattice"] for r in rows], np.float64)
+    check(len(rows) == BATCH and bool(np.isfinite(lat).all()),
+          f"generate from the trained checkpoint: {len(rows)} records")
+    want_gen = ENCODER_CONVS + DECODER_CONVS + UNET_CONVS
+    check(gen_counts["fwd"] == want_gen,
+          f"generate from the trained checkpoint: {gen_counts['fwd']} launches")
+    print(f"[train] generate --fused from {os.path.basename(ckpt)}/best.npz: "
+          f"{len(rows)} records, {sum(bool(r.get('valid')) for r in rows)} valid; "
+          f"conv launches {gen_counts['fwd']}")
+    return counts
+
+
+def phase_train_step(tmp: str, unet, card: str):
+    """One train and one eval step alone (launch counts), then the train
+    step's time by stage, and one profiled step."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.config import GridSpec, VAEConfig
+    from icsg3d_torch.data.store import GridDataset
+    from icsg3d_torch.models.unet import unet_features
+    from icsg3d_torch.ops import losses
+    from icsg3d_torch.train.vae import _assemble_x, create_vae_state, make_vae_steps
+
+    cfg = VAEConfig(grid=GridSpec(d=D))
+    state = create_vae_state(cfg, 5e-4, SEED, DEVICE)
+    model, opt = state.model, state.optimizer
+    train_step, eval_step = make_vae_steps(model, unet)
+    ds = GridDataset(os.path.join(tmp, "train-data"))
+    cond = np.zeros((BATCH, cfg.cond_bins), np.float32)
+    cond[np.arange(BATCH), np.arange(BATCH) % cfg.cond_bins] = 1.0
+    batch = {
+        "density": torch.from_numpy(np.array(ds.arrays["density"][:BATCH])),
+        "abc": torch.from_numpy(np.array(ds.arrays["lattice"][:BATCH, :3])),
+        "cond": torch.from_numpy(cond),
+    }
+    batch = {k: v.to(DEVICE) for k, v in batch.items()}
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    eps = torch.randn(BATCH, cfg.latent_dim, generator=gen, device=DEVICE)
+
+    for label, step, want in (
+        ("train", train_step, {"fwd": FWD_PER_STEP, "bias": FWD_PER_STEP,
+                               "folded": 0, "dx": DX_PER_STEP, "dw": DW_PER_STEP}),
+        ("eval", eval_step, {"fwd": FWD_PER_STEP, "bias": 1 + 2 * len(UNET_PREFIX),
+                             "folded": len(VAE_CONVS) - 1, "dx": 0, "dw": 0}),
+    ):
+        sync()
+        reset_counts()
+        mets = step(state, batch, eps)
+        sync()
+        got = read_counts()
+        check(got == want, f"one {label} step launched {got}, want {want}")
+        check(all(bool(torch.isfinite(v)) for v in mets.values()),
+              f"one {label} step: non-finite metrics")
+        print(f"[train-step] one {label} step: launches {got}")
+
+    taps = cfg.perceptual_taps
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        x = _assemble_x(batch, cfg.grid)
+        recon, z_mean, z_log_var, _ = model(x, batch["cond"], eps, train=True)
+        ev[1].record()
+        with torch.no_grad():
+            f_true = unet_features(unet, x, taps)
+        f_pred = unet_features(unet, recon, taps)
+        pm = losses.perceptual_feature_loss(f_true, f_pred, cfg.perceptual_tap_weights)
+        total = torch.mean(losses.mse_flat(x, recon) + cfg.alpha * pm
+                           + cfg.beta * losses.kld_gaussian(z_mean, z_log_var))
+        ev[2].record()
+        total.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    for _ in range(2):
+        staged()
+    runs = [staged() for _ in range(5)]
+    stage = [statistics.median(r[i] for r in runs) for i in range(4)]
+    step_ms = cuda_median_ms(lambda: train_step(state, batch, eps), runs=5, warmup=1)
+    eval_ms = cuda_median_ms(lambda: eval_step(state, batch, eps), runs=5, warmup=1)
+    print(f"[train-step] batch {BATCH} ({card}), CUDA-event medians of 5: VAE "
+          f"forward {stage[0]:.3f} ms, perceptual forwards + loss {stage[1]:.3f} ms, "
+          f"backward {stage[2]:.3f} ms, Adam {stage[3]:.3f} ms (sum "
+          f"{sum(stage):.3f}); train_step {step_ms:.3f} ms = "
+          f"{BATCH / step_ms * 1e3:.2f} train grids/s; eval_step {eval_ms:.3f} ms")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(state, batch, eps)
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    # device activity only: kernels and copies, not the CPU ops that launch
+    # them nor the GPU-side ranges of user annotations
+    from torch.autograd import DeviceType
+
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    print(f"[train-profile] one train step under torch.profiler ({card}): wall "
+          f"{wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms over "
+          f"{len(dev)} device ops; unprofiled step {step_ms:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy_ms / step_ms):.3f}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    return state, batch, eps
+
+
+def phase_train_cpu_parity(state, unet, batch, eps):
+    """One train step's loss and weight gradients, batch 2, on the card
+    (bf16 compute) and on the CPU (f32, plain versions), same weights and
+    noise."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from icsg3d_torch.models import ConditionalDFCVAE, UNet3D
+    from icsg3d_torch.train.vae import _vae_losses
+
+    t0 = time.perf_counter()
+    vae_cpu = ConditionalDFCVAE(dataclasses.replace(state.model.cfg, dtype="float32"))
+    vae_cpu.load_state_dict(state.model.state_dict())
+    unet_cpu = UNet3D(dataclasses.replace(unet.cfg, dtype="float32"))
+    unet_cpu.load_state_dict(unet.state_dict())
+    unet_cpu.eval().requires_grad_(False)
+    names = ("encoder.Conv_0.kernel", "decoder.decoder_output.kernel")
+    out = {}
+    for dev, vae, u in ((DEVICE, copy.deepcopy(state.model), unet),
+                        ("cpu", vae_cpu, unet_cpu)):
+        b = {k: v[:2].to(dev) for k, v in batch.items()}
+        vae.zero_grad(set_to_none=True)
+        total, mets = _vae_losses(vae, u, b, eps[:2].to(dev), train=True)
+        total.backward()
+        grads = dict(vae.named_parameters())
+        out[dev] = ({k: float(v.detach()) for k, v in mets.items()},
+                    {n: grads[n].grad.detach().double().cpu().flatten() for n in names})
+    (mg, gg), (mc, gc) = out[DEVICE], out["cpu"]
+    rel = abs(mg["loss"] - mc["loss"]) / abs(mc["loss"])
+    check(rel <= 2e-2, f"train step GPU vs CPU: loss {mg['loss']} vs {mc['loss']} "
+          f"(rel {rel:.3e} > 2e-2)")
+    cos = {n: float(torch.nn.functional.cosine_similarity(gg[n], gc[n], dim=0))
+           for n in names}
+    for n, c in cos.items():
+        check(c >= 0.95, f"train step GPU vs CPU: grad cosine of {n} {c:.4f} < 0.95")
+    print(f"[train-gpu-vs-cpu] batch 2 in {time.perf_counter() - t0:.1f} s: loss "
+          f"{mg['loss']:.6f} (card, bf16) vs {mc['loss']:.6f} (cpu, f32), rel "
+          f"{rel:.3e}; metrics card {mg} cpu {mc}; weight-gradient cosines {cos}")
+
+
 def main() -> None:
     try:
         import torch
@@ -406,26 +833,43 @@ def main() -> None:
 
     name, card = phase_device()
     phase_build()
-    rows = phase_kernels(card)
+    rows = phase_kernels(card, CONV_SHAPES + TRAIN_FWD_SHAPES)
+    rows += phase_backward_kernels(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vae, unet, runs = phase_main_path(tmp, card)
-    phase_breakdown(vae, unet, card)
-    phase_cpu_parity(vae, unet)
+        phase_breakdown(vae, unet, card)
+        phase_cpu_parity(vae, unet)
+        train_counts = phase_train(tmp, card)
+        state, batch, eps = phase_train_step(tmp, unet, card)
+        phase_train_cpu_parity(state, unet, batch, eps)
 
+    # launches on the main paths: generation (fused and host) and training
+    gen_counts = [{"bias": r["by_epilogue"]["bias"],
+                   "folded": sum(r["by_epilogue"][e] for e in FOLDED),
+                   "dx": 0, "dw": 0} for r in runs.values()]
+    paths = gen_counts + [train_counts]
+    count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
+                 "conv3d_same[dx]": "dx", "conv3d_dw": "dw"}
     kernels = []
-    for entry, epis, replaces in KERNEL_ENTRIES:
-        mine = [r for r in rows if r["epilogue"] in epis]
+    for entry, source, replaces, covers in KERNEL_ENTRIES:
+        mine = [r for r in rows if covers(r)]
+        by_kind = {}
+        for r in mine:
+            by_kind[r["bound_by"]] = by_kind.get(r["bound_by"], 0.0) + r["bound_ms"]
         kernels.append({
             "name": entry,
             "route": "cuda",
-            "source": "icsg3d_torch/csrc/conv3d.cu",
+            "source": source,
             "replaces": replaces,
-            "launches": sum(runs["fused"]["by_epilogue"][e] for e in epis),
+            "launches": sum(p[count_key[entry]] for p in paths),
             "max_abs_err": max(r["abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
+            "bound_ms": sum(r["bound_ms"] for r in mine),
+            "bound_by": max(by_kind, key=by_kind.get),
+            "library_ms": sum(r["library_ms"] for r in mine),
         })
-        check(kernels[-1]["launches"] > 0, f"{entry} was not launched by the path")
+        check(kernels[-1]["launches"] > 0, f"{entry} was not launched by the paths")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

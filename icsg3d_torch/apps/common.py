@@ -1,10 +1,12 @@
 """Shared helpers for the port's CLIs: flags, device choice and model
 loading.  Counterpart of icsg3d_tpu/apps/common.py.
 
-Weights come from a flat ``.npz`` exported from a Flax checkpoint
-(tools/export_flax_npz.py); the port cannot read Orbax directories.
-Without a checkpoint the models start from a seeded fresh init, with the
-same warning as the JAX CLIs when a checkpoint directory holds none.
+Weights come from a flat ``.npz``: one exported from a Flax checkpoint
+(tools/export_flax_npz.py), or a checkpoint directory of the port's own
+trainer, read through its ``best.npz``.  The port cannot read Orbax
+directories.  Without a checkpoint the models start from a seeded fresh
+init, with the same warning as the JAX CLIs when a checkpoint directory
+holds none.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import torch
 
 from icsg3d_torch.config import UNetConfig, VAEConfig
 from icsg3d_torch.models import ConditionalDFCVAE, UNet3D
-from icsg3d_torch.weights import load_flax_variables, load_npz
+from icsg3d_torch.weights import load_flax_variables, load_npz, model_variables
 
 EXPORT_SCRIPT = "tools/export_flax_npz.py"
 
@@ -112,12 +114,17 @@ def vae_config_from_args(args, grid, dtype: str = "bfloat16") -> VAEConfig:
 
 def weights_path(path: Optional[str], which: str = "best") -> Optional[str]:
     """The ``.npz`` to load for a ``--*-ckpt`` value, or None for a fresh
-    init.  An Orbax checkpoint directory raises: export it first."""
+    init: a file as it is; a checkpoint directory of the port's trainer
+    through its ``<which>.npz``.  An Orbax checkpoint directory raises:
+    export it first."""
     if not path:
         return None
     if os.path.isfile(path):
         return path
     if os.path.isdir(path):
+        own = os.path.join(path, which + ".npz")
+        if os.path.isfile(own):
+            return own
         if any(os.path.exists(os.path.join(path, which + suf))
                for suf in ("", ".new", ".old")):
             raise ValueError(
@@ -138,7 +145,7 @@ def weights_path(path: Optional[str], which: str = "best") -> Optional[str]:
 
 def _finish(model, path, device):
     if path is not None:
-        load_flax_variables(model, load_npz(path))
+        load_flax_variables(model, model_variables(load_npz(path)))
     return model.to(device).eval()
 
 

@@ -1,1 +1,2 @@
-"""Host data helpers: packed GridDataset store and condition binning."""
+"""Host data helpers: packed GridDataset store and batch iterator,
+train/validation splits, and condition binning."""

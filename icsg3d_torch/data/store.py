@@ -1,8 +1,11 @@
 """Packed on-disk dataset store (read and write).
 
-The ``GridDataset`` class of icsg3d_tpu/data/store.py, unchanged: a dataset
-is a directory of packed memory-mapped .npy fields plus an ids.json
-manifest.  The JAX batch iterator and device prefetcher are not copied.
+The ``GridDataset`` and ``BatchIterator`` classes of
+icsg3d_tpu/data/store.py, unchanged (tests/test_torch_guards.py holds
+``BatchIterator`` equal to its original): a dataset is a directory of
+packed memory-mapped .npy fields plus an ids.json manifest.  The JAX
+device prefetcher becomes ``prefetch_to_device``: a pinned host copy and a
+non-blocking transfer per batch, no thread.
 
 Fields:
     density   (N, d, d, d)    float32   Gaussian electron density
@@ -18,7 +21,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
@@ -98,3 +101,66 @@ class GridDataset:
             json.dump(list(ids), f)
         os.replace(tmp, os.path.join(path, "ids.json"))
         return GridDataset(path)
+
+
+class BatchIterator:
+    """Epoch iterator yielding dict batches of host numpy arrays.
+
+    Matches the reference generators' semantics: remainder batches are
+    dropped (vae/data.py:45), optional shuffling re-draws every epoch
+    (vae/data.py:60-64).  Rotation grouping is upstream in data_split.
+    """
+
+    def __init__(
+        self,
+        dataset: GridDataset,
+        ids: Sequence[str],
+        batch_size: int,
+        fields: Sequence[str] = ("density", "coords", "species"),
+        shuffle: bool = False,
+        seed: int = 0,
+        extra: Optional[Dict[str, np.ndarray]] = None,
+    ):
+        self.dataset = dataset
+        self.ids = list(ids)
+        self.batch_size = batch_size
+        self.fields = tuple(fields)
+        self.shuffle = shuffle
+        self.rng = np.random.default_rng(seed)
+        self.rows = dataset.rows(self.ids)
+        # extra: per-sample arrays aligned with `ids` (e.g. one-hot conds)
+        self.extra = extra or {}
+        for k, v in self.extra.items():
+            if len(v) != len(self.ids):
+                raise ValueError(f"extra[{k}] has {len(v)} rows, want {len(self.ids)}")
+
+    def __len__(self) -> int:
+        return len(self.ids) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = np.arange(len(self.ids))
+        if self.shuffle:
+            self.rng.shuffle(order)
+        for b in range(len(self)):
+            sel = order[b * self.batch_size : (b + 1) * self.batch_size]
+            rows = self.rows[sel]
+            batch = {f: np.asarray(self.dataset.arrays[f][rows]) for f in self.fields}
+            for k, v in self.extra.items():
+                batch[k] = np.asarray(v[sel])
+            yield batch
+
+
+def prefetch_to_device(iterator, device):
+    """Counterpart of icsg3d_tpu's threaded prefetcher: each host numpy
+    batch goes to ``device`` as tensors, on CUDA through pinned memory with
+    a non-blocking copy, so the host does not wait on the transfer.  No
+    thread is needed at this size."""
+    import torch
+
+    cuda = torch.device(device).type == "cuda"
+    for batch in iterator:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t.pin_memory().to(device, non_blocking=True) if cuda else t
+        yield out

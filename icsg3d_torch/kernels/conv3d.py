@@ -30,80 +30,53 @@ relu_affine    scale*relu(acc) + shift            U-Net blocks (conv->ReLU->BN)
 affine_relu    relu(scale*acc + shift)            K3; VAE output head (f32)
 =============  =================================  ==========================
 
+The same kernel computes K1 run as dx, the input gradient of the conv
+(``icsg3d_tpu/ops/lowc_conv.py:549-567``): a SAME conv of the cotangent
+with spatially flipped, channel-swapped weights and zero bias
+(``conv3d_dx_cuda``).  It keeps its own launch counter, ``launches_dx``.
+
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
-``icsg3d_torch/_build/`` on first use, loaded with ctypes (plain C
-interface).  Nothing is imported or built when this module is imported.
+``icsg3d_torch/_build/`` on first use (kernels/_nvcc.py), loaded with
+ctypes (plain C interface).  Nothing is imported or built when this module
+is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from icsg3d_torch.kernels._nvcc import PKG, build_library
+
 EPILOGUES = ("bias", "affine_leaky", "relu_affine", "affine_relu")
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "conv3d.cu"
-BUILD_DIR = _PKG / "_build"
+SOURCE = PKG / "csrc" / "conv3d.cu"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# Incremented once per kernel launch, never by the plain version.
+# Incremented once per kernel launch, never by the plain version: forward
+# launches (in total and by epilogue) and input-gradient launches.
 launches = 0
 launches_by_epilogue = {e: 0 for e in EPILOGUES}
+launches_dx = 0
 
 _lib = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_dx
+    launches = launches_dx = 0
     for e in EPILOGUES:
         launches_by_epilogue[e] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the conv3d kernel needs the CUDA toolkit")
-
-
 def build() -> Path:
-    """Compile ``csrc/conv3d.cu`` for sm_90a into a shared library.
-
-    The library name carries a hash of the source, so an edited source is
-    never served by a stale build.  Returns the library path.
-    """
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha256(src).hexdigest()[:16]
-    lib = BUILD_DIR / f"libconv3d_{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp), str(SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, lib)
-    return lib
+    """Compile ``csrc/conv3d.cu`` for sm_90a; returns the library path."""
+    return build_library(SOURCE, "libconv3d")
 
 
 def load() -> ctypes.CDLL:
@@ -135,6 +108,50 @@ def _check_channels(t: Optional[torch.Tensor], cout: int, name: str, x):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_operands(x: torch.Tensor, w: torch.Tensor, name: str):
+    """Raise unless x (B,D,H,W,C) and w (3,3,3,Cin,Cout) are contiguous
+    CUDA tensors of one supported dtype on one device; the caller checks
+    which side of w the channel C matches."""
+    if not x.is_cuda:
+        raise ValueError(f"{name} needs CUDA tensors")
+    if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
+        raise ValueError(
+            f"want x (B,D,H,W,C) and w (3,3,3,Cin,Cout), got "
+            f"{tuple(x.shape)} and {tuple(w.shape)}"
+        )
+    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
+        raise ValueError(
+            f"x and w must share dtype float32 or bfloat16, got {x.dtype}, {w.dtype}"
+        )
+    if w.device != x.device:
+        raise ValueError(f"w is on {w.device}, x on {x.device}")
+    if not (x.is_contiguous() and w.is_contiguous()):
+        raise ValueError("x and w must be contiguous")
+
+
+def _launch(x, wt, bias, scale, shift, epilogue, out_dtype, slope):
+    """One kernel launch: x (B,D,H,W,K) conv wt (27, N, K) -> (B,D,H,W,N)."""
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
+    B, D, H, W, k = x.shape
+    n = wt.shape[1]
+    lib = load()
+    out = torch.empty((B, D, H, W, n), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.conv3d_same(
+            x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
+            scale.data_ptr() if scale is not None else None,
+            shift.data_ptr() if shift is not None else None,
+            out.data_ptr(), B, D, H, W, k, n,
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
+            EPILOGUES.index(epilogue), float(slope), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"conv3d_same kernel launch failed: CUDA error {err}")
+    return out
+
+
 def conv3d_same_cuda(
     x: torch.Tensor,
     w: torch.Tensor,
@@ -155,50 +172,43 @@ def conv3d_same_cuda(
     global launches
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; choose from {EPILOGUES}")
-    if not x.is_cuda:
-        raise ValueError("conv3d_same_cuda needs CUDA tensors")
-    if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
-        raise ValueError(
-            f"want x (B,D,H,W,Cin) and w (3,3,3,Cin,Cout), got "
-            f"{tuple(x.shape)} and {tuple(w.shape)}"
-        )
-    B, D, H, W, cin = x.shape
-    cout = w.shape[4]
-    if w.shape[3] != cin:
-        raise ValueError(f"w has Cin={w.shape[3]}, x has {cin}")
-    if x.dtype not in _DTYPE_CODE or w.dtype != x.dtype:
-        raise ValueError(
-            f"x and w must share dtype float32 or bfloat16, got {x.dtype}, {w.dtype}"
-        )
-    out_dtype = out_dtype or x.dtype
-    if out_dtype not in _DTYPE_CODE:
-        raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    if w.device != x.device:
-        raise ValueError(f"w is on {w.device}, x on {x.device}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous")
+    _check_operands(x, w, "conv3d_same_cuda")
+    cin, cout = w.shape[3], w.shape[4]
+    if x.shape[4] != cin:
+        raise ValueError(f"w has Cin={cin}, x has {x.shape[4]}")
     _check_channels(bias, cout, "bias", x)
     if epilogue != "bias":
         _check_channels(scale, cout, "scale", x)
         _check_channels(shift, cout, "shift", x)
-    lib = load()
     # the kernel reads weights K-contiguous per output channel: (27, Cout, Cin)
     wt = w.reshape(27, cin, cout).transpose(1, 2).contiguous()
-    out = torch.empty((B, D, H, W, cout), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.conv3d_same(
-            x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
-            scale.data_ptr() if scale is not None else None,
-            shift.data_ptr() if shift is not None else None,
-            out.data_ptr(), B, D, H, W, cin, cout,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-            EPILOGUES.index(epilogue), float(slope), stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"conv3d_same kernel launch failed: CUDA error {err}")
+    out = _launch(x, wt, bias, scale, shift, epilogue, out_dtype or x.dtype, slope)
     launches += 1
     launches_by_epilogue[epilogue] += 1
+    return out
+
+
+def conv3d_dx_cuda(
+    g: torch.Tensor, w: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """K1 run as dx: the input gradient of the SAME conv with weights w.
+
+    g: (B, D, H, W, Cout) cotangent, contiguous, bf16 or f32; w: (3, 3, 3,
+    Cin, Cout) contiguous in g.dtype.  Returns (B, D, H, W, Cin) in
+    ``out_dtype`` (default g.dtype): the same kernel on the flipped,
+    channel-swapped weights (``_flip_w``, lowc_conv.py:518-521) with zero
+    bias.  In the kernel's (27, N, K) weight layout those are w's own
+    (27, Cin, Cout) rows in reverse tap order, so no transpose is needed.
+    """
+    global launches_dx
+    _check_operands(g, w, "conv3d_dx_cuda")
+    cin, cout = w.shape[3], w.shape[4]
+    if g.shape[4] != cout:
+        raise ValueError(f"w has Cout={cout}, g has {g.shape[4]}")
+    wt = w.reshape(27, cin, cout).flip(0).contiguous()
+    zero = torch.zeros(cin, dtype=torch.float32, device=g.device)
+    out = _launch(g, wt, zero, None, None, "bias", out_dtype or g.dtype, 0.0)
+    launches_dx += 1
     return out
 
 
@@ -249,3 +259,18 @@ def conv3d_same_reference(
         scale, shift = scale.float(), shift.float()
     y = apply_epilogue(y, epilogue, scale, shift, slope)
     return y.to(out_dtype).contiguous()
+
+
+def flip_weights(w: torch.Tensor) -> torch.Tensor:
+    """Weights of the input-gradient conv: spatial flip + channel swap,
+    (3, 3, 3, Cin, Cout) -> (3, 3, 3, Cout, Cin) (lowc_conv.py:518-521)."""
+    return w.flip((0, 1, 2)).transpose(3, 4)
+
+
+def conv3d_dx_reference(
+    g: torch.Tensor, w: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """The plain version of ``conv3d_dx_cuda``: ``conv3d_same_reference`` of
+    the cotangent with the flipped, channel-swapped weights, zero bias."""
+    zero = torch.zeros(w.shape[3], dtype=torch.float32, device=g.device)
+    return conv3d_same_reference(g, flip_weights(w), zero, out_dtype=out_dtype)

@@ -1,4 +1,4 @@
-"""Building blocks of the 3D conv models, eval mode, NDHWC activations.
+"""Building blocks of the 3D conv models, NDHWC activations.
 
 Parameters keep Flax's names and layouts so weights.py maps a Flax tree
 onto them mechanically: a conv holds ``kernel`` (k, k, k, Cin, Cout) and
@@ -9,7 +9,10 @@ onto them mechanically: a conv holds ``kernel`` (k, k, k, Cin, Cout) and
 Keras-parity notes (as in icsg3d_tpu/models/layers.py): BatchNorm uses
 epsilon 1e-3, and both block orders of the reference exist: U-Net blocks
 are Conv -> ReLU -> BN, VAE blocks Conv -> BN -> LeakyReLU.  In eval mode
-a whole block is one call of the fused conv kernel (ops/conv.py).
+a whole block is one call of the fused conv kernel (ops/conv.py).  In
+training a block is the differentiable conv (epilogue ``bias``), then a
+batch-statistics BatchNorm in plain torch with Flax's numerics (see
+``BatchNorm.train_forward``), then the activation.
 """
 
 from __future__ import annotations
@@ -18,9 +21,10 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from icsg3d_torch.ops.conv import conv3d_same, fold_batchnorm
+from icsg3d_torch.ops.conv import conv3d_same, conv3d_same_diff, fold_batchnorm
 
 KERAS_BN_MOMENTUM = 0.99
 KERAS_BN_EPSILON = 1e-3
@@ -69,11 +73,15 @@ class Dense(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm state; applied folded into a conv epilogue."""
+    """BatchNorm state.  Eval mode folds it into a conv epilogue (``fold``)
+    or applies the running statistics (``eval_forward``); training
+    normalises with the batch statistics (``train_forward``)."""
 
-    def __init__(self, channels: int, eps: float = KERAS_BN_EPSILON):
+    def __init__(self, channels: int, eps: float = KERAS_BN_EPSILON,
+                 momentum: float = KERAS_BN_MOMENTUM):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -86,6 +94,38 @@ class BatchNorm(nn.Module):
             self.eps,
         )
 
+    def _normalize(self, x, mean, var, dtype):
+        # flax _normalize: (x - mean) * (rsqrt(var + eps) * scale) + bias,
+        # in f32, cast to the layer's dtype
+        y = x.float() - mean
+        y = y * (torch.rsqrt(var + self.eps) * self.weight)
+        return (y + self.bias).to(dtype)
+
+    def eval_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Running-statistics BN with Flax's formula, out in x.dtype."""
+        return self._normalize(x, self.running_mean, self.running_var, x.dtype)
+
+    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Batch-statistics BN over all but the channel axis, out in x.dtype;
+        updates the running statistics.
+
+        Flax's numerics (flax/linen/normalization.py, flax 0.12.3,
+        ``_compute_stats`` with ``use_fast_variance``): the statistics are
+        f32, var = max(0, E[x^2] - E[x]^2), and the BIASED variance both
+        normalises and enters the running variance (torch's own
+        batch_norm would put the unbiased one there):
+        ra = momentum * ra + (1 - momentum) * batch.
+        """
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return self._normalize(x, mean, var, x.dtype)
+
 
 def conv_block(
     x: torch.Tensor,
@@ -95,12 +135,17 @@ def conv_block(
     act: str = "relu",
     slope: float = 0.3,
     out_dtype: Optional[torch.dtype] = None,
+    train: bool = False,
 ) -> torch.Tensor:
-    """Conv3D(3x3x3, SAME) + BatchNorm + activation as one fused call.
+    """Conv3D(3x3x3, SAME) + BatchNorm + activation.
 
     order="relu_bn": conv -> relu -> bn   (U-Net, unet/unet.py:276-278)
     order="bn_act":  conv -> bn -> act    (VAE,   vae/lattice_vae.py:173-175)
     with act "relu" or "leaky" (slope ``slope``) for "bn_act".
+
+    Eval mode is one fused kernel call.  ``train=True`` runs the
+    differentiable conv and batch-statistics BN (updating the running
+    statistics); its output is in x.dtype and ``out_dtype`` is ignored.
     """
     if order == "relu_bn":
         if act != "relu":
@@ -112,6 +157,12 @@ def conv_block(
             raise ValueError(f"unknown act {act!r}")
     else:
         raise ValueError(f"unknown order {order!r}")
+    if train:
+        y = conv3d_same_diff(x, conv.kernel, conv.bias)
+        if order == "relu_bn":
+            return bn.train_forward(torch.relu(y))
+        y = bn.train_forward(y)
+        return leaky_relu(y, slope) if act == "leaky" else torch.relu(y)
     scale, shift = bn.fold()
     return conv3d_same(
         x, conv.kernel, conv.bias, scale=scale, shift=shift,
@@ -125,12 +176,16 @@ def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
 
 
 def max_pool_3d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
-    """2x2x2 max pool, stride 2, VALID (Keras MaxPool3D(strides=(2,2,2)))."""
-    b, d, h, w, c = x.shape
-    d, h, w = d // window, h // window, w // window
-    x = x[:, : d * window, : h * window, : w * window]
-    x = x.reshape(b, d, window, h, window, w, window, c)
-    return x.amax(dim=(2, 4, 6))
+    """2x2x2 max pool, stride 2, VALID (Keras MaxPool3D(strides=(2,2,2))).
+
+    One ``max_pool3d`` call on the channels_last_3d NCDHW view (no copy).
+    Its gradient goes to ONE element of each window, the first maximum in
+    (d, h, w) window order, as the select-and-scatter gradient of JAX's
+    ``nn.max_pool`` does; ``amax`` would split it among tied maxima, which
+    bf16 activations produce.
+    """
+    y = F.max_pool3d(x.permute(0, 4, 1, 2, 3), window, window)
+    return y.permute(0, 2, 3, 4, 1)
 
 
 def upsample_3d(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""3D U-Net species segmenter, eval mode.
+"""3D U-Net species segmenter, eval mode, and its perceptual taps.
 
 Counterpart of icsg3d_tpu/models/unet.py (reference AtomUnet,
 unet/unet.py:272-355): a 3-level encoder-decoder over (B, d, d, d, 4) grids
@@ -13,13 +13,14 @@ with skip concats ``[skip, x]`` and two f32 1x1x1 heads, ``head_soft``
     dec L2: c11=256, c12=128  -> up, concat c2
     dec L1: c13=128, c14=128  -> heads
 
-Each conv -> ReLU -> BN block is one fused kernel call.  The ``max_conv``
-truncation and the perceptual taps serve training and are not ported yet.
+Each conv -> ReLU -> BN block of the forward is one fused kernel call.
+``unet_features`` is the DFC-VAE's feature extractor: convs 1..max(taps)
+only, returning the post-ReLU, pre-BN activations of the tap convs.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -32,6 +33,7 @@ from icsg3d_torch.models.layers import (
     max_pool_3d,
     upsample_3d,
 )
+from icsg3d_torch.ops.conv import conv3d_same_diff
 
 
 class UNet3D(nn.Module):
@@ -54,7 +56,8 @@ class UNet3D(nn.Module):
             ch = f2
         for i, (cin, cout) in enumerate(plan, start=1):
             self.add_module(f"conv{i}", Conv3d(cin, cout, generator=generator))
-            self.add_module(f"bn{i}", BatchNorm(cout, cfg.bn_epsilon))
+            self.add_module(f"bn{i}", BatchNorm(cout, cfg.bn_epsilon,
+                                                cfg.bn_momentum))
         self.n_convs = len(plan)
         self.head_soft = Conv3d(ch, cfg.num_classes, 1, generator)
         self.head_sig = Conv3d(ch, 1, 1, generator)
@@ -89,3 +92,52 @@ class UNet3D(nn.Module):
             x = torch.cat([skip, x.to(skip.dtype)], dim=-1)
             x = block(block(x))
         return self.head_soft.pointwise(x), self.head_sig.pointwise(x)
+
+
+def unet_features(unet: UNet3D, x: torch.Tensor,
+                  taps: Sequence[int]) -> List[torch.Tensor]:
+    """Post-ReLU, pre-BN activations of the given conv indices (1-based),
+    in the U-Net's compute dtype (unet.py:114-117, 216-229).
+
+    Runs convs 1..max(taps) only, with running-statistics BN.  The fused
+    ``relu_affine`` epilogue would hide the tapped tensor, so each conv
+    here is the differentiable conv (epilogue ``bias``), then ReLU and the
+    BN affine in torch: under ``no_grad`` (the true grid) nothing is kept,
+    and on the reconstruction the gradient reaches the input through the
+    convs' input gradient alone (the U-Net's parameters are frozen).
+    """
+    cfg = unet.cfg
+    dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}[cfg.dtype]
+    max_conv = max(taps)
+    feats = {}
+    x = x.to(dtype)
+    idx = 0
+
+    def block(h):
+        nonlocal idx
+        idx += 1
+        conv = getattr(unet, f"conv{idx}")
+        h = torch.relu(conv3d_same_diff(h, conv.kernel, conv.bias))
+        if idx in taps:
+            feats[idx] = h
+        return getattr(unet, f"bn{idx}").eval_forward(h)
+
+    skips = []
+    for _ in cfg.enc_filters:
+        for _ in range(2):
+            x = block(x)
+            if idx >= max_conv:
+                return [feats[i] for i in taps]
+        skips.append(x)
+        x = max_pool_3d(x)
+    for _ in range(2):
+        x = block(x)
+        if idx >= max_conv:
+            return [feats[i] for i in taps]
+    for _, skip in zip(cfg.dec_filters, reversed(skips)):
+        x = torch.cat([skip, upsample_3d(x).to(skip.dtype)], dim=-1)
+        for _ in range(2):
+            x = block(x)
+            if idx >= max_conv:
+                return [feats[i] for i in taps]
+    raise ValueError(f"taps {tuple(taps)} reach past the U-Net's {idx} convs")

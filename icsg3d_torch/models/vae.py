@@ -1,4 +1,4 @@
-"""Conditional deep-feature-consistent VAE over voxel grids, eval mode.
+"""Conditional deep-feature-consistent VAE over voxel grids.
 
 Counterpart of icsg3d_tpu/models/vae.py (reference LatticeDFCVAE,
 vae/lattice_vae.py:69-270), with the same submodule names as the Flax tree
@@ -13,8 +13,10 @@ so weights.py maps checkpoints mechanically:
   Conv -> BN -> LeakyReLU with reversed filters and 2x nearest upsampling
   between; an f32 output head Conv -> BN -> ReLU.
 
-Every 3x3x3 conv block is one fused kernel call (models/layers.conv_block).
-Training (batch-statistics BN, the DFC loss) is not ported yet.
+In eval mode every 3x3x3 conv block is one fused kernel call
+(models/layers.conv_block); ``train=True`` runs the differentiable conv and
+batch-statistics BN (updating the running statistics).  The DFC loss is in
+train/vae.py.
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ from icsg3d_torch.models.layers import (
     max_pool_3d,
     upsample_3d,
 )
-from icsg3d_torch.ops.conv import conv3d_same
+from icsg3d_torch.ops.conv import conv3d_same_diff
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -50,7 +52,8 @@ class Encoder(nn.Module):
         cin = cfg.grid.channels + cfg.cond_bins * cfg.cond_repeat
         for i, f in enumerate(cfg.filters):
             self.add_module(f"Conv_{i}", Conv3d(cin, f, generator=generator))
-            self.add_module(f"BatchNorm_{i}", BatchNorm(f, cfg.bn_epsilon))
+            self.add_module(f"BatchNorm_{i}",
+                            BatchNorm(f, cfg.bn_epsilon, cfg.bn_momentum))
             cin = f
         n = len(cfg.filters)
         self.add_module(f"Conv_{n}", Conv3d(cin, 4, generator=generator))
@@ -59,7 +62,7 @@ class Encoder(nn.Module):
         self.z_mean = Dense(cfg.latent_dim, cfg.latent_dim, generator)
         self.z_log_var = Dense(cfg.latent_dim, cfg.latent_dim, generator)
 
-    def forward(self, x: torch.Tensor, cond: torch.Tensor
+    def forward(self, x: torch.Tensor, cond: torch.Tensor, train: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """x: (B, d, d, d, C); cond: (B, cond_bins) one-hot.
 
@@ -73,11 +76,11 @@ class Encoder(nn.Module):
         for i in range(len(cfg.filters)):
             x = conv_block(
                 x, getattr(self, f"Conv_{i}"), getattr(self, f"BatchNorm_{i}"),
-                order="bn_act", act="leaky", slope=cfg.leaky_slope,
+                order="bn_act", act="leaky", slope=cfg.leaky_slope, train=train,
             )
             x = max_pool_3d(x)
         last = getattr(self, f"Conv_{len(cfg.filters)}")
-        x = conv3d_same(x, last.kernel, last.bias, epilogue="bias")
+        x = conv3d_same_diff(x, last.kernel, last.bias)
         x = leaky_relu(x, cfg.leaky_slope)
         x = x.reshape(x.shape[0], -1)
         x = torch.relu(self.Dense_0(x, dtype)).float()
@@ -98,12 +101,15 @@ class Decoder(nn.Module):
         cin = self.c0
         for i, f in enumerate(reversed(cfg.filters)):
             self.add_module(f"Conv_{i}", Conv3d(cin, f, generator=generator))
-            self.add_module(f"BatchNorm_{i}", BatchNorm(f, cfg.bn_epsilon))
+            self.add_module(f"BatchNorm_{i}",
+                            BatchNorm(f, cfg.bn_epsilon, cfg.bn_momentum))
             cin = f
         self.decoder_output = Conv3d(cin, cfg.grid.channels, generator=generator)
-        self.output_bn = BatchNorm(cfg.grid.channels, cfg.bn_epsilon)
+        self.output_bn = BatchNorm(cfg.grid.channels, cfg.bn_epsilon,
+                                   cfg.bn_momentum)
 
-    def forward(self, z: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
+    def forward(self, z: torch.Tensor, cond: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
         """z: (B, latent_dim); cond: (B, cond_bins).  Returns the f32
         (B, d, d, d, channels) grid."""
         cfg = self.cfg
@@ -115,7 +121,7 @@ class Decoder(nn.Module):
         for i in range(n):
             x = conv_block(
                 x, getattr(self, f"Conv_{i}"), getattr(self, f"BatchNorm_{i}"),
-                order="bn_act", act="leaky", slope=cfg.leaky_slope,
+                order="bn_act", act="leaky", slope=cfg.leaky_slope, train=train,
             )
             if i < n - 1:
                 x = upsample_3d(x)
@@ -123,12 +129,13 @@ class Decoder(nn.Module):
         # vae/lattice_vae.py:225-226)
         return conv_block(
             x.float(), self.decoder_output, self.output_bn,
-            order="bn_act", act="relu", out_dtype=torch.float32,
+            order="bn_act", act="relu", out_dtype=torch.float32, train=train,
         )
 
 
 class ConditionalDFCVAE(nn.Module):
-    """Encoder + decoder; ``encode``/``decode`` as in the Flax module."""
+    """Encoder + reparameterized sample + decoder; ``encode``/``decode`` as
+    in the Flax module."""
 
     def __init__(self, cfg: VAEConfig = VAEConfig(),
                  generator: Optional[torch.Generator] = None):
@@ -136,6 +143,15 @@ class ConditionalDFCVAE(nn.Module):
         self.cfg = cfg
         self.encoder = Encoder(cfg, generator)
         self.decoder = Decoder(cfg, generator)
+
+    def forward(self, x, cond, eps, train: bool = False):
+        """Full VAE pass (vae.py:275-283) with the reparameterization noise
+        ``eps`` (B, latent_dim) passed in.  Returns (reconstruction,
+        z_mean, z_log_var, z)."""
+        z_mean, z_log_var = self.encoder(x, cond, train=train)
+        z = reparameterize(z_mean, z_log_var, eps)
+        recon = self.decoder(z, cond, train=train)
+        return recon, z_mean, z_log_var, z
 
     def encode(self, x, cond):
         return self.encoder(x, cond)

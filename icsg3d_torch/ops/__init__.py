@@ -1,2 +1,3 @@
-"""Device ops of the port: the 3x3x3 conv wrapper, grid transforms, binary
-atom extraction, and the host watershed (a verbatim copy)."""
+"""Device ops of the port: the 3x3x3 conv (and its differentiable form),
+the losses, grid transforms, binary atom extraction, and the host
+watershed (a verbatim copy)."""

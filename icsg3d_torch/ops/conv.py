@@ -5,8 +5,14 @@ The port's counterpart of ``icsg3d_tpu/ops/lowc_conv.py::conv3d_lowc``
 conv3d_bn_relu_pallas`` (conv + folded BN + ReLU, K3): one entry point, the
 epilogue chosen by name (see kernels/conv3d.py for the table).
 
-A CUDA tensor launches the hand-written kernel (or the wrapper raises); a
-CPU tensor takes the plain PyTorch version.  There is no other route.
+``conv3d_same_diff`` is the differentiable form, the counterpart of
+``conv_ndcs``'s custom_vjp (lowc_conv.py:524-570): forward on the conv
+kernel (epilogue ``bias``), dx on the same kernel with flipped,
+channel-swapped weights (K1 as dx), dW on the weight-gradient kernel (K2),
+db a plain f32 sum of the cotangent.
+
+A CUDA tensor launches the hand-written kernels (or the wrapper raises); a
+CPU tensor takes their plain PyTorch versions.  There is no other route.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ from typing import Optional
 import torch
 
 from icsg3d_torch.kernels import conv3d as _k
+from icsg3d_torch.kernels import conv3d_dw as _dw
 
 
 def fold_batchnorm(gamma, beta, mean, var, eps: float):
@@ -60,3 +67,48 @@ def conv3d_same(
             x, w, bias, scale, shift, epilogue, out_dtype, slope
         )
     raise ValueError(f"conv3d_same runs on cuda or cpu tensors, not {x.device}")
+
+
+def _route(t: torch.Tensor, cuda_fn, plain_fn):
+    if t.is_cuda:
+        return cuda_fn
+    if t.device.type == "cpu":
+        return plain_fn
+    raise ValueError(f"conv3d_same_diff runs on cuda or cpu tensors, not {t.device}")
+
+
+class Conv3dSame(torch.autograd.Function):
+    """y = conv(x, w) + bias with x in the compute dtype and the f32
+    parameters w (3,3,3,Cin,Cout) and bias (Cout,) cast inside, as Flax
+    casts its kernel (models/layers.py:181): dW and db then come back f32
+    from the kernel's f32 accumulator instead of rounded to bf16."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias):
+        wc = w.to(x.dtype).contiguous()
+        x = x.contiguous()
+        ctx.save_for_backward(x, wc)
+        return conv3d_same(x, wc, bias, epilogue="bias")
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wc = ctx.saved_tensors
+        # the cotangent in the compute dtype, as lowc_conv.py:563 casts it
+        g = g.to(x.dtype).contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:  # not for data inputs (encoder Conv_0)
+            dx = _route(g, _k.conv3d_dx_cuda, _k.conv3d_dx_reference)(g, wc)
+        if ctx.needs_input_grad[1]:  # not for the frozen U-Net
+            dw = _route(x, _dw.conv3d_dw_cuda, _dw.conv3d_dw_reference)(x, g)
+        if ctx.needs_input_grad[2]:
+            # upcast first: a bf16 sum over ~10^5 voxels loses the bias grad
+            db = g.float().sum(dim=(0, 1, 2, 3))
+        return dx, dw, db
+
+
+def conv3d_same_diff(x: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """Differentiable Conv3D(3x3x3, SAME) + bias: x (B, D, H, W, Cin) in the
+    compute dtype, w (3, 3, 3, Cin, Cout) and bias (Cout,) f32 parameters.
+    Returns (B, D, H, W, Cout) in x.dtype."""
+    return Conv3dSame.apply(x, w, bias)

@@ -1,6 +1,8 @@
-"""Inverse grid transforms: decoded coordinate channels -> lattice geometry.
+"""Grid transforms: lattice lengths -> coordinate channels, and decoded
+coordinate channels -> lattice geometry.
 
-Counterpart of icsg3d_tpu/ops/grid.py (reference utils.py:160-190); the
+Counterpart of icsg3d_tpu/ops/grid.py (reference utils.py:160-190) and of
+``icsg3d_tpu/ops/voxelize.py::coordinate_grid`` (utils.py:88-94); the
 GridSpec owns d and eps_frac.
 """
 
@@ -9,6 +11,22 @@ from __future__ import annotations
 import torch
 
 from icsg3d_torch.config import GridSpec
+
+
+def coordinate_grids(abc: torch.Tensor, grid: GridSpec) -> torch.Tensor:
+    """(B, 3) lattice lengths -> (B, d, d, d, 3) float32 grids of absolute
+    coordinates in [0, l + 2*eps*l): per axis (l * (1 + 2*eps)) / d *
+    arange(d), the batched form of voxelize.coordinate_grid."""
+    abc = abc.float()
+    d = grid.d
+    hi = abc * (1.0 + 2.0 * grid.eps_frac)
+    axes = hi[:, :, None] / d * torch.arange(d, dtype=torch.float32,
+                                             device=abc.device)
+    b = abc.shape[0]
+    X = axes[:, 0, :, None, None].expand(b, d, d, d)
+    Y = axes[:, 1, None, :, None].expand(b, d, d, d)
+    Z = axes[:, 2, None, None, :].expand(b, d, d, d)
+    return torch.stack([X, Y, Z], dim=-1)
 
 
 def to_lattice_params(coords: torch.Tensor, grid: GridSpec) -> torch.Tensor:

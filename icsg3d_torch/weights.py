@@ -85,15 +85,27 @@ _FLAX_LEAVES = {
 }
 
 
+def flax_key(key: str) -> str:
+    """The inverse of ``port_key``: "encoder.BatchNorm_0.weight" ->
+    "params/encoder/BatchNorm_0/scale"."""
+    *path, leaf = key.split(".")
+    collection, name = _FLAX_LEAVES[leaf]
+    return "/".join([collection, *path, name])
+
+
 def to_flax_variables(module) -> dict:
     """The inverse map: a port module's state as a Flax variables tree of
     numpy arrays (e.g. to save seeded weights with ``save_npz``)."""
-    flat = {}
-    for key, t in module.state_dict().items():
-        *path, leaf = key.split(".")
-        collection, name = _FLAX_LEAVES[leaf]
-        flat["/".join([collection, *path, name])] = t.detach().cpu().float().numpy()
-    return unflatten(flat)
+    return unflatten({
+        flax_key(key): t.detach().cpu().float().numpy()
+        for key, t in module.state_dict().items()
+    })
+
+
+def model_variables(tree: Mapping) -> dict:
+    """The model collections of a loaded ``.npz`` tree, without the
+    training extras a checkpoint may hold (``step``, ``opt_state``)."""
+    return {c: tree[c] for c in COLLECTIONS if c in tree}
 
 
 def load_flax_variables(module, variables) -> None:

@@ -1,4 +1,4 @@
-"""The hand-written conv kernel on the card against its plain version.
+"""The hand-written conv kernels on the card against their plain versions.
 
 Every test here is marked ``cuda`` and skips without a GPU.  The file
 imports no JAX (the machine with the card has none), so it runs there
@@ -8,13 +8,16 @@ without the repo's conftest:
 
 Bounds: max |kernel - reference| / max |reference| <= 1e-2 for a bf16
 output (bf16 rounding of the output), <= 1e-4 for an f32 output (f32
-sums in another order).  The reference runs F.conv3d with TF32 off.
+sums in another order), <= 1e-3 for the weight gradient (f32 out, but
+sums of 10^3-10^6 bf16 products taken in another order).  The references
+run F.conv3d and matmuls with TF32 off.
 """
 
 import pytest
 import torch
 
 from icsg3d_torch.kernels import conv3d as k
+from icsg3d_torch.kernels import conv3d_dw as kdw
 
 torch.set_num_threads(1)
 
@@ -112,3 +115,102 @@ def test_extraction_on_card_equals_cpu(cuda_device):
     assert int(cpu[2].sum()) > 0
     for c, k_ in zip(cpu, card):
         assert torch.allclose(c.double(), k_.cpu().double(), atol=1e-5)
+
+
+def _rel_err(got, ref):
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max())
+
+
+DX_CASES = [
+    # (B, D, H, W, Cin, Cout, dtype): dx maps g (.., Cout) to (.., Cin)
+    (2, 8, 8, 8, 4, 32, torch.bfloat16),     # U-Net conv1: dx out 4 channels
+    (1, 4, 4, 4, 128, 4, torch.bfloat16),    # g of 4 channels: scalar loads
+    (2, 4, 6, 5, 64, 72, torch.bfloat16),
+    (2, 8, 8, 8, 16, 4, torch.float32),      # the f32 output head
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DX_CASES)
+def test_dx_kernel_matches_reference_on_card(cuda_device, case):
+    B, D, H, W, cin, cout, dt = case
+    g = torch.Generator(device="cpu").manual_seed(2)
+    gy = torch.randn(B, D, H, W, cout, generator=g).to(cuda_device, dt)
+    w = (torch.randn(3, 3, 3, cin, cout, generator=g) / (27 * cout) ** 0.5).to(
+        cuda_device, dt
+    )
+    n0, f0 = k.launches_dx, k.launches
+    got = k.conv3d_dx_cuda(gy, w)
+    torch.cuda.synchronize()
+    assert (k.launches_dx, k.launches) == (n0 + 1, f0)
+    ref = k.conv3d_dx_reference(gy, w)
+    assert got.shape == (B, D, H, W, cin) and got.dtype == dt
+    assert _rel_err(got, ref) <= (1e-2 if dt == torch.bfloat16 else 1e-4)
+
+
+DW_CASES = [
+    # (B, D, H, W, Cin, Cout, dtype)
+    (2, 8, 8, 8, 16, 32, torch.bfloat16),    # cp.async path
+    (2, 8, 8, 8, 14, 16, torch.bfloat16),    # Cin 14: scalar loads
+    (1, 4, 4, 4, 4, 128, torch.bfloat16),    # Cin 4
+    (2, 2, 2, 2, 128, 4, torch.bfloat16),    # Cout 4, 16 voxels
+    (2, 5, 7, 6, 24, 40, torch.bfloat16),    # ragged tiles
+    (2, 8, 8, 8, 16, 4, torch.float32),      # the f32 output head
+    (1, 6, 5, 4, 24, 20, torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES)
+def test_dw_kernel_matches_reference_on_card(cuda_device, case):
+    B, D, H, W, cin, cout, dt = case
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(B, D, H, W, cin, generator=g).to(cuda_device, dt)
+    gy = torch.randn(B, D, H, W, cout, generator=g).to(cuda_device, dt)
+    n0 = kdw.launches
+    got = kdw.conv3d_dw_cuda(x, gy)
+    torch.cuda.synchronize()
+    assert kdw.launches == n0 + 1
+    ref = kdw.conv3d_dw_reference(x, gy)
+    assert got.shape == (3, 3, 3, cin, cout) and got.dtype == torch.float32
+    assert _rel_err(got, ref) <= 1e-3
+    again = kdw.conv3d_dw_cuda(x, gy)
+    assert torch.equal(got, again)  # split-K reduction in a fixed order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,dt", [(4, 16, torch.bfloat16),
+                                         (16, 4, torch.float32)])
+def test_conv_function_grads_on_card(cuda_device, cin, cout, dt):
+    """conv3d_same_diff's backward on the card (K1 as dx, K2, the f32 bias
+    sum) against the plain versions of the three passes on the same
+    operands."""
+    from icsg3d_torch.ops.conv import conv3d_same_diff
+
+    g = torch.Generator(device="cpu").manual_seed(4)
+    x = torch.randn(2, 8, 8, 8, cin, generator=g).to(cuda_device, dt).requires_grad_()
+    w = (torch.randn(3, 3, 3, cin, cout, generator=g) / (27 * cin) ** 0.5).to(
+        cuda_device).requires_grad_()
+    b = torch.randn(cout, generator=g).to(cuda_device).requires_grad_()
+    gy = torch.randn(2, 8, 8, 8, cout, generator=g).to(cuda_device, dt)
+    counts = (k.launches, k.launches_dx, kdw.launches)
+    y = conv3d_same_diff(x, w, b)
+    (y.float() * gy.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert (k.launches, k.launches_dx, kdw.launches) == tuple(c + 1 for c in counts)
+    assert x.grad.dtype == dt and w.grad.dtype == torch.float32
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+    assert _rel_err(x.grad, k.conv3d_dx_reference(gy, w.detach().to(dt))) <= tol
+    assert _rel_err(w.grad, kdw.conv3d_dw_reference(x.detach(), gy)) <= 1e-3
+    assert _rel_err(b.grad, gy.float().sum(dim=(0, 1, 2, 3))) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_dw_wrapper_checks_on_card(cuda_device):
+    x = torch.zeros(1, 4, 4, 4, 8, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="dtype"):
+        kdw.conv3d_dw_cuda(x, x.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        kdw.conv3d_dw_cuda(x.transpose(1, 2), x)
+    with pytest.raises(ValueError, match="want x"):
+        kdw.conv3d_dw_cuda(x, x[:, :2])

@@ -28,6 +28,8 @@ VERBATIM = [
     "crystal/lattice.py",
     "crystal/structure.py",
     "crystal/cif.py",
+    "data/splits.py",
+    "train/common.py",
 ]
 
 NO_JAX = """
@@ -53,6 +55,14 @@ recs = gen.main(["--data", sys.argv[1] + "/data", "--base", "a",
                  "--batch-size", "2", "--device", "cpu", "--fused",
                  "--output", sys.argv[1] + "/out"])
 assert len(recs) == 2
+import icsg3d_torch.apps.train_vae as tv
+GridDataset.write(sys.argv[1] + "/train", [f"p{i}" for i in range(5)], {
+    "density": density[[0] * 5], "lattice": np.full((5, 6), 4.0, np.float32),
+    "target": np.arange(5, dtype=np.float32)})
+hist = tv.main(["--data", sys.argv[1] + "/train", "--nrot", "0", "--epochs", "1",
+                "--filters", "4,8", "--latent", "8", "--batch-size", "2",
+                "--device", "cpu", "--ckpt", sys.argv[1] + "/ckpt"])
+assert len(hist) == 1
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "optax", "orbax", "icsg3d_tpu")
              and sys.modules[m] is not None)
@@ -62,6 +72,8 @@ print("NO_JAX_OK")
 
 
 def test_port_imports_and_runs_with_jax_blocked(tmp_path):
+    """generate and train_vae run end to end with JAX, Flax, optax, Orbax
+    and icsg3d_tpu unimportable."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", NO_JAX, str(tmp_path)], cwd=str(tmp_path),
@@ -86,6 +98,16 @@ def test_verbatim_copies_match_their_originals(rel):
     header = f"# Verbatim copy of icsg3d_tpu/{rel}.\n"
     assert copy.startswith(header)
     assert copy[len(header):] == original.replace("icsg3d_tpu", "icsg3d_torch")
+
+
+def test_batch_iterator_is_a_verbatim_copy():
+    import inspect
+
+    from icsg3d_torch.data import store as tstore
+    from icsg3d_tpu.data import store as jstore
+
+    assert inspect.getsource(tstore.BatchIterator) == inspect.getsource(
+        jstore.BatchIterator)
 
 
 @pytest.mark.parametrize("name", ["GridSpec", "VAEConfig", "UNetConfig",
@@ -128,3 +150,10 @@ def test_orbax_directory_names_the_export_script(tmp_path, capsys):
     assert "using fresh weights" in capsys.readouterr().err
     with pytest.raises(FileNotFoundError):
         tcommon.weights_path(str(tmp_path / "missing.npz"))
+
+
+def test_checkpoint_directory_resolves_to_its_npz(tmp_path):
+    (tmp_path / "best.npz").write_bytes(b"")
+    (tmp_path / "latest.npz").write_bytes(b"")
+    assert tcommon.weights_path(str(tmp_path)) == str(tmp_path / "best.npz")
+    assert tcommon.weights_path(str(tmp_path), "latest") == str(tmp_path / "latest.npz")
