@@ -9,8 +9,8 @@ Phases (any failure exits nonzero, before the result line):
 
 1. Device: the card's name and ``nvidia-smi`` name and power limit; CUDA
    must be available.
-2. Build: compile icsg3d_torch/csrc/conv3d.cu and conv3d_dw.cu for sm_90a
-   (one nvcc per source, started together; ctypes).
+2. Build: compile icsg3d_torch/csrc/conv3d.cu, conv3d_dw.cu and
+   voxelize.cu for sm_90a (one nvcc per source, started together; ctypes).
 3. Kernel vs plain, at batch 20, each against its plain version on the
    same operands (TF32 off), with the kernel's, the plain version's and
    one PyTorch library call's CUDA-event medians of 10 runs, and the
@@ -49,6 +49,34 @@ Phases (any failure exits nonzero, before the result line):
    within 2e-2 relative, and the cosine of the first and last VAE conv's
    weight gradients at least 0.95 (bf16 activations and input gradients
    through ~20 convs on the card, f32 on the CPU).
+9. Voxelizer kernel (K4) against its plain version on the same operands:
+   one production launch (256 synthetic perovskite/rocksalt structures,
+   32^3, site_pad 64) and the repo's real CIFs (tests/fixtures/real_cifs,
+   those within max_sites 40) at 32^3.  Species identical (a differing
+   voxel prints its f64 margin to the labelling radius or to the tie),
+   density within rtol 2e-4 / atol 1e-6; kernel and plain CUDA-event
+   medians and the bound (the largest of bytes / 3.35 TB/s, f32 operations
+   / 66.9 TFLOP/s, exponentials / the SFU rate of 16 per SM per clock at
+   the card's maximum SM clock), counted over the real sites.
+10. Dataset build: ``icsg3d_torch.apps.voxelize.main`` on the real CIFs
+   (``--nrot 2 --d 32``, card and ``--device cpu``: identical ids and
+   species, density within rtol 2e-4) and on 300 synthetic structures
+   (``--nrot 0``).  K4 launched ceil(kept / 256) times per build; every
+   field written; species within {0} and the structure's atomic numbers.
+11. U-Net training: ``icsg3d_torch.apps.train_unet.main`` on the
+   synthetic build at production width (95 classes, batch 10, ``--nrot
+   0``, 2 epochs of 24 train steps and 6 val batches): finite metrics,
+   history.json, class_weights.json, and exactly 14 forward (``bias``), 13
+   dx and 14 dW launches per train step and 14 folded forwards per eval
+   step.  Then generate ``--fused`` with the trained checkpoint directory.
+12. U-Net train step: the counts of one train and one eval step alone; ms
+   by stage (forward, loss, backward, Adam) and train grids/s at batch 10;
+   one torch.profiler step.  The backward-kernel phase (3) also checks
+   the 14 U-Net dW shapes and the 5 dx shapes of convs 10-14 at batch 10,
+   and the forward phase the 14 U-Net training forwards at batch 10.
+13. GPU vs CPU for one U-Net train step (batch 2, same weights and
+   batch): loss within 2e-2 relative, weight-gradient cosines of conv1
+   and conv14 at least 0.95.
 
 It imports nothing of JAX.  The last two stdout lines are the kernels
 JSON object and then ``{"ok": true, "device": {...}}``.
@@ -136,6 +164,27 @@ DX_PER_STEP, DW_PER_STEP = len(DX_SHAPES), len(DW_SHAPES)  # 18, 10
 
 TRAIN_PARENTS, TRAIN_EPOCHS = 100, 2  # 80 train (4 steps) + 20 val per epoch
 
+# U-Net training at the CLI's and the reference's batch: its 14 convs
+# (name, Cin, Cout, edge, dtype).
+UNET_BATCH = 10
+UNET_TRAIN = UNET_PREFIX + [
+    ("unet.conv10", 512, 256, 8, "bf16"),
+    ("unet.conv11", 384, 256, 16, "bf16"),
+    ("unet.conv12", 256, 128, 16, "bf16"),
+    ("unet.conv13", 192, 128, 32, "bf16"),
+    ("unet.conv14", 128, 128, 32, "bf16"),
+]
+UNET_FWD_SHAPES = [(n, ci, co, e, "bias", dt, dt) for n, ci, co, e, dt in UNET_TRAIN]
+UNET_DX_NEW = UNET_TRAIN[:8:-1]  # convs 14..10: dx shapes the VAE step has not
+UNET_CONVS_N = len(UNET_TRAIN)  # 14 forward + 14 dW per train step, 13 dx
+UNET_PARENTS, UNET_EPOCHS = 300, 2  # 240 train (24 steps) + 60 val (6 batches)
+
+# The dataset build: the CLI's chunk at 32^3 and the config's site limits.
+VOX_CHUNK, SITE_PAD, MAX_SITES = 256, 64, 40
+REAL_CIFS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                         "fixtures", "real_cifs")
+SFU_EXP_PER_SM_CLOCK = 16
+
 # The H100 SXM's dense peaks and memory rate (NVIDIA's data sheet).
 PEAK_FLOPS = {"bf16": 989.4e12, "f32": 66.9e12}
 MEM_BYTES_PER_S = 3.35e12
@@ -154,6 +203,8 @@ KERNEL_ENTRIES = [
      "icsg3d_tpu/ops/lowc_conv.py:549", lambda r: r["pass"] == "dx"),
     ("conv3d_dw", "icsg3d_torch/csrc/conv3d_dw.cu",
      "icsg3d_tpu/ops/lowc_conv.py:289", lambda r: r["pass"] == "dw"),
+    ("voxelize", "icsg3d_torch/csrc/voxelize.cu",
+     "icsg3d_tpu/ops/pallas_voxelize.py:41", lambda r: r["pass"] == "vox"),
 ]
 
 # 3x3x3 convs per generation run: the encoder once (4 blocks + Conv_4),
@@ -217,22 +268,24 @@ def phase_build():
 
     from icsg3d_torch.kernels import conv3d as k
     from icsg3d_torch.kernels import conv3d_dw as kdw
+    from icsg3d_torch.kernels import voxelize as kv
 
     t0 = time.perf_counter()
-    mods = (k, kdw)
+    mods = (k, kdw, kv)
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, at once
         libs = list(pool.map(lambda m: m.load(), mods))
     print(f"[build] {', '.join(os.path.basename(lib._name) for lib in libs)} in "
           f"{time.perf_counter() - t0:.2f} s (one nvcc per source, in parallel)")
 
 
-def bound_ms(pas: str, cin: int, cout: int, edge: int, idt: str, odt: str):
-    """The least time the card could take for one conv pass at batch
-    BATCH: the larger of its FLOPs over the dense peak of its input type
-    and its bytes (x read once, the other activation read (dw) or written
-    (fwd, dx) once, the weights) over the memory rate.  Returns (ms,
+def bound_ms(pas: str, cin: int, cout: int, edge: int, idt: str, odt: str,
+             batch: int):
+    """The least time the card could take for one conv pass at ``batch``:
+    the larger of its FLOPs over the dense peak of its input type and its
+    bytes (x read once, the other activation read (dw) or written (fwd,
+    dx) once, the weights) over the memory rate.  Returns (ms,
     "operations" or "bytes")."""
-    vox = BATCH * edge ** 3
+    vox = batch * edge ** 3
     flops = 2 * vox * 27 * cin * cout
     i, o, w = ITEMSIZE[idt], ITEMSIZE[odt], 27 * cin * cout
     if pas == "fwd":
@@ -245,7 +298,7 @@ def bound_ms(pas: str, cin: int, cout: int, edge: int, idt: str, odt: str):
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def phase_kernels(card: str, shapes):
+def phase_kernels(card: str, shapes, batch: int):
     import torch
     import torch.nn.functional as F
 
@@ -254,11 +307,11 @@ def phase_kernels(card: str, shapes):
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    print(f"[kernels] batch {BATCH}, card: {card}")
+    print(f"[kernels] batch {batch}, card: {card}")
     print("  model        Cin->Cout @edge  epilogue      out   max_abs_err  "
           "rel_err   kernel_ms  plain_ms  cudnn_ms  bound_ms")
     for model, cin, cout, edge, epi, idt, odt in shapes:
-        x = torch.randn(BATCH, edge, edge, edge, cin, device="cuda",
+        x = torch.randn(batch, edge, edge, edge, cin, device="cuda",
                         generator=gen).to(dt[idt])
         w = (torch.randn(3, 3, 3, cin, cout, device="cuda", generator=gen)
              / (27 * cin) ** 0.5).to(dt[idt])
@@ -289,12 +342,12 @@ def phase_kernels(card: str, shapes):
             return k.apply_epilogue(y.float() + b, epi, scale, shift).to(dt[odt])
 
         cudnn_ms = cuda_median_ms(cudnn)
-        bms, bby = bound_ms("fwd", cin, cout, edge, idt, odt)
+        bms, bby = bound_ms("fwd", cin, cout, edge, idt, odt, batch)
         print(f"  {model:12s} {cin:4d}->{cout:<4d}@{edge:<3d} {epi:13s} {odt:4s} "
               f"{abs_err:11.3e} {rel_err:9.2e} {ms:10.4f} {plain_ms:9.4f} "
               f"{cudnn_ms:9.4f} {bms:9.4f} {bby}")
         rows.append(dict(model=model, cin=cin, cout=cout, edge=edge, epilogue=epi,
-                         abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         batch=batch, abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                          library_ms=cudnn_ms, bound_ms=bms, bound_by=bby,
                          **{"pass": "fwd"}))
     print(f"  total over the shapes: kernel {sum(r['ms'] for r in rows):.3f} ms, "
@@ -306,9 +359,11 @@ def phase_kernels(card: str, shapes):
     return rows
 
 
-def phase_backward_kernels(card: str):
-    """K1 as dx at the 18 input-gradient shapes and K2 at the 10 weight-
-    gradient shapes of a train step, at batch BATCH."""
+def phase_backward_kernels(card: str, sets):
+    """K1 as dx and K2 at the shapes of ``sets``: (pass, shapes, batch) --
+    the 18 input-gradient and 10 weight-gradient shapes of a VAE train step
+    at batch BATCH, the 14 U-Net weight gradients and the U-Net's 5 new
+    input-gradient shapes at batch UNET_BATCH."""
     import torch
 
     from icsg3d_torch.kernels import conv3d as k
@@ -317,13 +372,14 @@ def phase_backward_kernels(card: str):
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
     rows = []
-    print(f"[backward-kernels] batch {BATCH}, card: {card}")
-    print("  pass conv            fwd Cin->Cout @edge type  max_abs_err  rel_err  "
+    print(f"[backward-kernels] card: {card}")
+    print("  pass conv          batch fwd Cin->Cout @edge type  max_abs_err  rel_err  "
           "bound    kernel_ms  plain_ms  library_ms  bound_ms")
-    for pas, shapes in (("dx", DX_SHAPES), ("dw", DW_SHAPES)):
+    for pas, shapes, batch in sets:
+        mine = []
         for name, cin, cout, edge, idt in shapes:
             t = dt[idt]
-            shape = (BATCH, edge, edge, edge)
+            shape = (batch, edge, edge, edge)
             g = torch.randn(*shape, cout, device="cuda", generator=gen).to(t)
             if pas == "dx":
                 w = (torch.randn(3, 3, 3, cin, cout, device="cuda", generator=gen)
@@ -335,7 +391,7 @@ def phase_backward_kernels(card: str):
 
                 def library():
                     return torch.nn.grad.conv3d_input(
-                        (BATCH, cin, edge, edge, edge), wc, gc, padding=1)
+                        (batch, cin, edge, edge, edge), wc, gc, padding=1)
             else:
                 x = torch.randn(*shape, cin, device="cuda", generator=gen).to(t)
                 args, run, plain = (x, g), kdw.conv3d_dw_cuda, kdw.conv3d_dw_reference
@@ -357,16 +413,16 @@ def phase_backward_kernels(card: str):
             ms = cuda_median_ms(lambda: run(*args))
             plain_ms = cuda_median_ms(lambda: plain(*args))
             library_ms = cuda_median_ms(library)
-            bms, bby = bound_ms(pas, cin, cout, edge, idt, idt)
-            print(f"  {pas:4s} {name:15s} {cin:4d}->{cout:<4d}@{edge:<3d} {idt:4s} "
+            bms, bby = bound_ms(pas, cin, cout, edge, idt, idt, batch)
+            print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} {idt:4s} "
                   f"{abs_err:11.3e} {rel_err:8.2e} {bound:6g} {ms:10.4f} "
                   f"{plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}")
-            rows.append(dict(model=name, cin=cin, cout=cout, edge=edge, abs_err=abs_err,
-                             ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                             bound_ms=bms, bound_by=bby, epilogue=None,
-                             **{"pass": pas}))
-        mine = [r for r in rows if r["pass"] == pas]
-        print(f"  {pas} total: kernel {sum(r['ms'] for r in mine):.3f} ms, plain "
+            mine.append(dict(model=name, cin=cin, cout=cout, edge=edge, batch=batch,
+                             abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bms, bound_by=bby,
+                             epilogue=None, **{"pass": pas}))
+        rows += mine
+        print(f"  {pas} at batch {batch}, {len(mine)} shapes: kernel {sum(r['ms'] for r in mine):.3f} ms, plain "
               f"{sum(r['plain_ms'] for r in mine):.3f} ms, library "
               f"{sum(r['library_ms'] for r in mine):.3f} ms, bound "
               f"{sum(r['bound_ms'] for r in mine):.3f} ms")
@@ -587,19 +643,22 @@ def write_train_dataset(path: str):
 def reset_counts() -> None:
     from icsg3d_torch.kernels import conv3d as k
     from icsg3d_torch.kernels import conv3d_dw as kdw
+    from icsg3d_torch.kernels import voxelize as kv
 
     k.reset_launches()
     kdw.reset_launches()
+    kv.reset_launches()
 
 
 def read_counts() -> dict:
     from icsg3d_torch.kernels import conv3d as k
     from icsg3d_torch.kernels import conv3d_dw as kdw
+    from icsg3d_torch.kernels import voxelize as kv
 
     by = dict(k.launches_by_epilogue)
     return {"fwd": k.launches, "bias": by["bias"],
             "folded": sum(by[e] for e in FOLDED), "dx": k.launches_dx,
-            "dw": kdw.launches}
+            "dw": kdw.launches, "vox": kv.launches}
 
 
 def phase_train(tmp: str, card: str):
@@ -698,9 +757,11 @@ def phase_train_step(tmp: str, unet, card: str):
 
     for label, step, want in (
         ("train", train_step, {"fwd": FWD_PER_STEP, "bias": FWD_PER_STEP,
-                               "folded": 0, "dx": DX_PER_STEP, "dw": DW_PER_STEP}),
+                               "folded": 0, "dx": DX_PER_STEP, "dw": DW_PER_STEP,
+                               "vox": 0}),
         ("eval", eval_step, {"fwd": FWD_PER_STEP, "bias": 1 + 2 * len(UNET_PREFIX),
-                             "folded": len(VAE_CONVS) - 1, "dx": 0, "dw": 0}),
+                             "folded": len(VAE_CONVS) - 1, "dx": 0, "dw": 0,
+                             "vox": 0}),
     ):
         sync()
         reset_counts()
@@ -747,32 +808,7 @@ def phase_train_step(tmp: str, unet, card: str):
           f"{sum(stage):.3f}); train_step {step_ms:.3f} ms = "
           f"{BATCH / step_ms * 1e3:.2f} train grids/s; eval_step {eval_ms:.3f} ms")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        train_step(state, batch, eps)
-        sync()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-
-    # device activity only: kernels and copies, not the CPU ops that launch
-    # them nor the GPU-side ranges of user annotations
-    from torch.autograd import DeviceType
-
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-    by_name = {}
-    for e in dev:
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    print(f"[train-profile] one train step under torch.profiler ({card}): wall "
-          f"{wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms over "
-          f"{len(dev)} device ops; unprofiled step {step_ms:.3f} ms, idle share "
-          f"{max(0.0, 1 - busy_ms / step_ms):.3f}")
-    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
-        print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    profile_step(lambda: train_step(state, batch, eps), step_ms, "train-profile", card)
     return state, batch, eps
 
 
@@ -818,6 +854,426 @@ def phase_train_cpu_parity(state, unet, batch, eps):
           f"{rel:.3e}; metrics card {mg} cpu {mc}; weight-gradient cosines {cos}")
 
 
+def _pack(structures):
+    """Pad structures' sites as the dataset build does (frac * abc
+    cartesians, sigma = ionic radius, SITE_PAD): (sites, z, sigma, mask,
+    abc) numpy float32 stacks."""
+    import numpy as np
+
+    from icsg3d_torch.ops.voxelize import pad_sites
+
+    rows = []
+    for s in structures:
+        N, z, r = s.site_arrays()
+        cart = N * np.asarray(s.lattice.abc, np.float64)
+        rows.append((*pad_sites(cart, z, r, SITE_PAD),
+                     np.array(s.lattice.abc, np.float32)))
+    return [np.stack([r[i] for r in rows]) for i in range(5)]
+
+
+def real_cif_structures():
+    """The repo's real CIFs that parse and have 1..MAX_SITES sites (what
+    the build keeps), sorted by file name."""
+    from icsg3d_torch.crystal.cif import read_cif
+
+    out = []
+    for fname in sorted(f for f in os.listdir(REAL_CIFS) if f.endswith(".cif")):
+        try:
+            s = read_cif(os.path.join(REAL_CIFS, fname))
+        except Exception:  # the build skips files that do not parse
+            continue
+        if 0 < len(s) <= MAX_SITES:
+            out.append(s)
+    return out
+
+
+def vox_bound_counts(mask, d: int) -> dict:
+    """What K4 must do for these inputs, for its bound: bytes
+    (each input read once, the two f32 outputs written once), f32
+    operations and exponentials over the real (mask != 0) site-voxel pairs,
+    and the same over the padded site count beside them."""
+    import numpy as np
+
+    B, S = mask.shape
+    nv = d ** 3
+    real = int(np.count_nonzero(mask))
+    # per pair: cross 5, d2 4 (add, sub, mul, max), exponent argument 1,
+    # weight 1, sum 1, sqrt 1, two compares; per voxel: |v|^2 5, scale 1
+    per_pair, per_voxel = 15, 6
+    return {
+        "bytes": 4 * (B * S * 6 + B * 3) + 2 * 4 * B * nv,
+        "flops": per_pair * real * nv + per_voxel * B * nv,
+        "exps": real * nv,
+        "flops_padded": per_pair * B * S * nv + per_voxel * B * nv,
+        "exps_padded": B * S * nv,
+    }
+
+
+def species_margins(arrs, d, where, limit=10):
+    """For voxels whose species differ: the f64 margin of each to the
+    labelling radius of its nearest site and to the tie of its two nearest
+    valid sites."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.kernels.voxelize import voxel_axes
+
+    sites, z, sigma, mask, abc = (np.asarray(a, np.float64) for a in arrs)
+    ax = voxel_axes(torch.from_numpy(arrs[4]), d, 0.25).double().numpy()
+    lines = []
+    for b, i, j, k in list(zip(*where))[:limit]:
+        v = np.array([ax[b, 0, i], ax[b, 1, j], ax[b, 2, k]])
+        valid = mask[b] > 0
+        dist = np.linalg.norm(sites[b][valid] - v, axis=1)
+        rad = np.maximum(sigma[b][valid], 1e-6)
+        srt = np.sort(dist)
+        lines.append(f"voxel (b={b}, {i}, {j}, {k}): min |dist - radius| "
+                     f"{np.min(np.abs(dist - rad)):.3e}, tie margin "
+                     f"{srt[1] - srt[0] if len(srt) > 1 else float('inf'):.3e}")
+    return lines
+
+
+def phase_voxelize_kernel(card: str):
+    """K4 against its plain version on one production launch and on the
+    real CIFs, with times and the bound."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.data.synthetic import random_structures
+    from icsg3d_torch.kernels import voxelize as kv
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(smi.returncode == 0, f"nvidia-smi clocks failed: {smi.stderr.strip()}")
+    clock_hz = float(smi.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    exp_rate = SFU_EXP_PER_SM_CLOCK * sms * clock_hz
+    inputs = [
+        (f"chunk of {VOX_CHUNK} synthetic",
+         random_structures(VOX_CHUNK, seed=SEED + 6, kinds=("perovskite", "rocksalt"))),
+        ("real CIFs", real_cif_structures()),
+    ]
+    rows = []
+    print(f"[voxelize-kernel] {D}^3, site_pad {SITE_PAD} ({card}; {sms} SMs, max SM "
+          f"clock {clock_hz / 1e6:.0f} MHz, SFU {exp_rate / 1e12:.3f} T exp/s)")
+    for label, structures in inputs:
+        arrs = _pack(structures)
+        args = [torch.from_numpy(a).cuda() for a in arrs]
+        dens, spec = kv.voxelize_cuda(*args, D, 0.25, 1.0)
+        torch.cuda.synchronize()
+        ref_d, ref_s = kv.voxelize_reference(*args, D, 0.25, 1.0)
+        diff = (spec != ref_s).cpu().numpy()
+        if diff.any():
+            for line in species_margins(arrs, D, np.nonzero(diff)):
+                print("  " + line)
+        check(not diff.any(), f"K4 {label}: {int(diff.sum())} voxels' species differ "
+              "from the plain version")
+        abs_err = float((dens - ref_d).abs().max())
+        close = bool(torch.allclose(dens, ref_d, rtol=2e-4, atol=1e-6))
+        check(close and bool(torch.isfinite(dens).all()),
+              f"K4 {label}: density off the plain version by up to {abs_err:.3e}")
+        ms = cuda_median_ms(lambda: kv.voxelize_cuda(*args, D, 0.25, 1.0))
+        plain_ms = cuda_median_ms(lambda: kv.voxelize_reference(*args, D, 0.25, 1.0),
+                                  runs=3, warmup=1)
+        n = vox_bound_counts(arrs[3], D)
+        t = {"bytes": n["bytes"] / MEM_BYTES_PER_S, "f32": n["flops"] / PEAK_FLOPS["f32"],
+             "exp": n["exps"] / exp_rate}
+        bby = max(t, key=t.get)
+        bms = 1e3 * t[bby]
+        pad_ms = 1e3 * max(t["bytes"], n["flops_padded"] / PEAK_FLOPS["f32"],
+                           n["exps_padded"] / exp_rate)
+        real = int(np.count_nonzero(arrs[3]))
+        print(f"  {label}: {len(structures)} structures, {real} real sites of "
+              f"{arrs[3].size} padded; species equal, density max abs err "
+              f"{abs_err:.3e} (max {float(ref_d.max()):.3e}); kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; bound {bms:.4f} ms by {bby} (bytes "
+              f"{1e3 * t['bytes']:.4f}, f32 ops {1e3 * t['f32']:.4f}, exp "
+              f"{1e3 * t['exp']:.4f} ms; over the padded sites {pad_ms:.4f} ms)")
+        rows.append(dict(model=label, abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                         library_ms=None, bound_ms=bms,
+                         bound_by="bytes" if bby == "bytes" else "operations",
+                         **{"pass": "vox"}))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _species_within_z(ds) -> bool:
+    import numpy as np
+
+    spec, site_z = np.asarray(ds.arrays["species"]), np.asarray(ds.arrays["site_z"])
+    return all(set(np.unique(spec[i]).tolist()) <= {0} | set(site_z[i].tolist())
+               for i in range(len(ds)))
+
+
+def phase_voxelize(tmp: str, card: str):
+    """``apps.voxelize.main`` on the real CIFs (card and CPU) and on
+    UNET_PARENTS synthetic structures; returns (the synthetic build's path,
+    the K4 launches of the card builds)."""
+    import math
+
+    import numpy as np
+
+    from icsg3d_torch.apps import voxelize
+    from icsg3d_torch.data.store import FIELDS
+
+    builds = [
+        ("cifs", ["--cifs", REAL_CIFS, "--targets-csv",
+                  os.path.join(REAL_CIFS, "targets.csv"), "--nrot", "2"]),
+        ("synthetic", ["--synthetic", str(UNET_PARENTS), "--kinds",
+                       "perovskite,rocksalt", "--nrot", "0"]),
+    ]
+    total = {"vox": 0}
+    out = {}
+    for label, argv in builds:
+        path = os.path.join(tmp, f"vox-{label}")
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        ds = voxelize.main(argv + ["--d", str(D), "--out", path, "--device", DEVICE])
+        sync()
+        secs = time.perf_counter() - t0
+        n = read_counts()["vox"]
+        kept = sum("_rot_" not in i for i in ds.ids)
+        want = math.ceil(kept / VOX_CHUNK)
+        check(n == want, f"voxelize {label}: K4 launched {n} times for {kept} "
+              f"structures, want {want}")
+        check(set(ds.arrays) == set(FIELDS), f"voxelize {label}: fields {sorted(ds.arrays)}")
+        check(_species_within_z(ds), f"voxelize {label}: species outside the "
+              "structures' atomic numbers")
+        total["vox"] += n
+        out[label] = (path, ds)
+        print(f"[voxelize] {label}: {len(ds)} samples ({kept} structures) in "
+              f"{secs:.3f} s ({card}); K4 launches {n} = ceil({kept}/{VOX_CHUNK}); "
+              f"species classes {len(np.unique(np.asarray(ds.arrays['species'])))}")
+    t0 = time.perf_counter()
+    cpu = voxelize.main(builds[0][1] + ["--d", str(D), "--out",
+                                        os.path.join(tmp, "vox-cifs-cpu"),
+                                        "--device", "cpu"])
+    secs = time.perf_counter() - t0
+    card_ds = out["cifs"][1]
+    check(cpu.ids == card_ds.ids, "voxelize cifs: card and CPU ids differ")
+    same = np.array_equal(np.asarray(cpu.arrays["species"]),
+                          np.asarray(card_ds.arrays["species"]))
+    check(same, "voxelize cifs: card and CPU species differ")
+    dc, dg = np.asarray(cpu.arrays["density"]), np.asarray(card_ds.arrays["density"])
+    check(np.allclose(dg, dc, rtol=2e-4, atol=1e-6),
+          f"voxelize cifs: card and CPU density differ by {np.abs(dg - dc).max():.3e}")
+    print(f"[voxelize] cifs on the CPU in {secs:.3f} s: ids and species equal the "
+          f"card's, density max abs diff {float(np.abs(dg - dc).max()):.3e}")
+    return out["synthetic"][0], total
+
+
+def phase_train_unet(tmp: str, data: str, card: str):
+    """``apps.train_unet.main`` at production width on the synthetic build,
+    then generate ``--fused`` from the checkpoint directory it wrote."""
+    import numpy as np
+
+    from icsg3d_torch.apps import generate, train_unet
+
+    ckpt = os.path.join(tmp, "unet-ckpt")
+    argv = ["--data", data, "--epochs", str(UNET_EPOCHS), "--batch-size",
+            str(UNET_BATCH), "--nrot", "0", "--device", DEVICE, "--ckpt", ckpt,
+            "--seed", str(SEED)]
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    hist = train_unet.main(argv)
+    sync()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    n_train = int(0.8 * UNET_PARENTS) // UNET_BATCH
+    n_val = (UNET_PARENTS - int(0.8 * UNET_PARENTS)) // UNET_BATCH
+    check(len(hist) == UNET_EPOCHS, f"train_unet: {len(hist)} epochs of history")
+    for e, h in enumerate(hist):
+        check(h["steps"] == n_train, f"train_unet epoch {e}: {h['steps']} steps")
+        for split in ("train", "val"):
+            vals = [v for k, v in h[split].items() if k != "ce_per_class"]
+            check(all(np.isfinite(v) for v in vals) and
+                  bool(np.isfinite(h[split]["ce_per_class"]).all()),
+                  f"train_unet epoch {e}: non-finite {split} metrics")
+    for name in ("history.json", "class_weights.json", "best.npz", "latest.npz"):
+        check(os.path.exists(os.path.join(ckpt, name)), f"train_unet wrote no {name}")
+    with open(os.path.join(ckpt, "class_weights.json")) as f:
+        cw = json.load(f)["class_weights"]
+    check(len(cw) == 95 and cw[0] == 0.0, "class_weights.json is malformed")
+    per = UNET_EPOCHS * n_train
+    want = {"fwd": per * UNET_CONVS_N + UNET_EPOCHS * n_val * UNET_CONVS_N,
+            "bias": per * UNET_CONVS_N,
+            "folded": UNET_EPOCHS * n_val * UNET_CONVS_N,
+            "dx": per * (UNET_CONVS_N - 1), "dw": per * UNET_CONVS_N, "vox": 0}
+    check(counts == want, f"train_unet: launches {counts}, want {want} "
+          f"({UNET_EPOCHS} epochs x ({n_train} train + {n_val} eval) steps)")
+    print(f"[train-unet] train_unet.main: {UNET_EPOCHS} epochs x {n_train} steps + "
+          f"{n_val} val batches at batch {UNET_BATCH} in {secs:.3f} s ({card}); epoch "
+          f"times {[round(h['time'], 3) for h in hist]} s; train loss "
+          f"{[round(h['train']['loss'], 4) for h in hist]}, val ce "
+          f"{[round(h['val']['ce'], 4) for h in hist]}; launches {counts} = expected")
+
+    out = os.path.join(tmp, "gen-unet")
+    sync()
+    reset_counts()
+    generate.main(["--data", data, "--base", "syn-0", "--vae-ckpt",
+                   os.path.join(tmp, "vae.npz"), "--unet-ckpt", ckpt, "--nsamples",
+                   str(BATCH), "--batch-size", str(BATCH), "--device", DEVICE,
+                   "--fused", "--output", out])
+    sync()
+    gen_counts = read_counts()
+    with open(os.path.join(out, "results.json")) as f:
+        rows = json.load(f)
+    want_gen = ENCODER_CONVS + DECODER_CONVS + UNET_CONVS
+    check(len(rows) == BATCH and gen_counts["fwd"] == want_gen,
+          f"generate from the U-Net checkpoint: {len(rows)} records, "
+          f"{gen_counts['fwd']} launches")
+    print(f"[train-unet] generate --fused --unet-ckpt {os.path.basename(ckpt)}: "
+          f"{len(rows)} records, {sum(bool(r.get('valid')) for r in rows)} valid; "
+          f"conv launches {gen_counts['fwd']}")
+    return counts, np.asarray(cw, np.float32)
+
+
+def phase_unet_train_step(data: str, class_weights, card: str):
+    """One U-Net train and eval step alone (launch counts), the train step
+    by stage, and one profiled step, at batch UNET_BATCH."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.config import UNetConfig
+    from icsg3d_torch.data.store import GridDataset
+    from icsg3d_torch.train.unet import (
+        create_unet_state,
+        losses_from_logits,
+        make_unet_steps,
+        prepare_unet_batch,
+    )
+    from icsg3d_torch.train.vae import _assemble_x
+
+    state = create_unet_state(UNetConfig(), 3e-6, SEED, DEVICE)
+    model, opt = state.model, state.optimizer
+    train_step, eval_step = make_unet_steps(model, class_weights)
+    ds = GridDataset(data)
+    raw = {k: np.asarray(ds.arrays[k][:UNET_BATCH]) for k in ("density", "lattice",
+                                                              "species")}
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in prepare_unet_batch(raw, 95, device_coords=True).items()}
+    n = UNET_CONVS_N
+    for label, step, want in (
+        ("train", train_step, {"fwd": n, "bias": n, "folded": 0, "dx": n - 1,
+                               "dw": n, "vox": 0}),
+        ("eval", eval_step, {"fwd": n, "bias": 0, "folded": n, "dx": 0, "dw": 0,
+                             "vox": 0}),
+    ):
+        sync()
+        reset_counts()
+        mets = step(state, batch)
+        sync()
+        got = read_counts()
+        check(got == want, f"one U-Net {label} step launched {got}, want {want}")
+        check(all(bool(torch.isfinite(v).all()) for v in mets.values()),
+              f"one U-Net {label} step: non-finite metrics")
+        print(f"[unet-train-step] one {label} step: launches {got}")
+
+    cw = torch.from_numpy(class_weights).to(DEVICE)
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        soft, sig = model(_assemble_x(batch, None), train=True)
+        ev[1].record()
+        loss, _ = losses_from_logits(soft, sig, batch["labels"], cw)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        ev[4].synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(4)]
+
+    for _ in range(2):
+        staged()
+    runs = [staged() for _ in range(5)]
+    stage = [statistics.median(r[i] for r in runs) for i in range(4)]
+    step_ms = cuda_median_ms(lambda: train_step(state, batch), runs=5, warmup=1)
+    eval_ms = cuda_median_ms(lambda: eval_step(state, batch), runs=5, warmup=1)
+    print(f"[unet-train-step] batch {UNET_BATCH} ({card}), CUDA-event medians of 5: "
+          f"forward {stage[0]:.3f} ms, loss + metrics {stage[1]:.3f} ms, backward "
+          f"{stage[2]:.3f} ms, Adam {stage[3]:.3f} ms (sum {sum(stage):.3f}); "
+          f"train_step {step_ms:.3f} ms = {UNET_BATCH / step_ms * 1e3:.2f} train "
+          f"grids/s; eval_step {eval_ms:.3f} ms")
+    profile_step(lambda: train_step(state, batch), step_ms, "unet-train-profile", card)
+    return state, batch, cw
+
+
+def profile_step(fn, step_ms: float, tag: str, card: str):
+    """One call of ``fn`` under torch.profiler: device busy ms (kernels and
+    copies), the idle share against the unprofiled ``step_ms``, and the
+    top device ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device activity only: kernels and copies, not the CPU ops that launch
+    # them nor the GPU-side ranges of user annotations
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    by_name = {}
+    for e in dev:
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    print(f"[{tag}] one train step under torch.profiler ({card}): wall "
+          f"{wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms over "
+          f"{len(dev)} device ops; unprofiled step {step_ms:.3f} ms, idle share "
+          f"{max(0.0, 1 - busy_ms / step_ms):.3f}")
+    for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
+        print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+
+
+def phase_unet_train_cpu_parity(state, batch, cw):
+    """One U-Net train step's loss and weight gradients, batch 2, on the
+    card (bf16 compute) and on the CPU (f32, plain versions), same weights
+    and batch."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from icsg3d_torch.models import UNet3D
+    from icsg3d_torch.train.unet import _unet_losses
+
+    t0 = time.perf_counter()
+    card_model = copy.deepcopy(state.model)
+    cpu_model = UNet3D(dataclasses.replace(card_model.cfg, dtype="float32"))
+    cpu_model.load_state_dict(card_model.state_dict())
+    names = ("conv1.kernel", "conv14.kernel")
+    out = {}
+    for dev, model in ((DEVICE, card_model), ("cpu", cpu_model)):
+        b = {k: v[:2].to(dev) for k, v in batch.items()}
+        model.zero_grad(set_to_none=True)
+        loss, mets = _unet_losses(model, b, cw.to(dev), train=True)
+        loss.backward()
+        grads = dict(model.named_parameters())
+        out[dev] = (float(loss.detach()),
+                    {n: grads[n].grad.detach().double().cpu().flatten() for n in names})
+    (lg, gg), (lc, gc) = out[DEVICE], out["cpu"]
+    rel = abs(lg - lc) / abs(lc)
+    check(rel <= 2e-2, f"U-Net train step GPU vs CPU: loss {lg} vs {lc} "
+          f"(rel {rel:.3e} > 2e-2)")
+    cos = {n: float(torch.nn.functional.cosine_similarity(gg[n], gc[n], dim=0))
+           for n in names}
+    for n, c in cos.items():
+        check(c >= 0.95, f"U-Net train step GPU vs CPU: grad cosine of {n} {c:.4f} < 0.95")
+    print(f"[unet-train-gpu-vs-cpu] batch 2 in {time.perf_counter() - t0:.1f} s: loss "
+          f"{lg:.6f} (card, bf16) vs {lc:.6f} (cpu, f32), rel {rel:.3e}; "
+          f"weight-gradient cosines {cos}")
+
+
 def main() -> None:
     try:
         import torch
@@ -833,8 +1289,12 @@ def main() -> None:
 
     name, card = phase_device()
     phase_build()
-    rows = phase_kernels(card, CONV_SHAPES + TRAIN_FWD_SHAPES)
-    rows += phase_backward_kernels(card)
+    rows = phase_kernels(card, CONV_SHAPES + TRAIN_FWD_SHAPES, BATCH)
+    rows += phase_kernels(card, UNET_FWD_SHAPES, UNET_BATCH)
+    rows += phase_backward_kernels(card, [
+        ("dx", DX_SHAPES, BATCH), ("dw", DW_SHAPES, BATCH),
+        ("dx", UNET_DX_NEW, UNET_BATCH), ("dw", UNET_TRAIN, UNET_BATCH)])
+    rows += phase_voxelize_kernel(card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vae, unet, runs = phase_main_path(tmp, card)
         phase_breakdown(vae, unet, card)
@@ -842,32 +1302,39 @@ def main() -> None:
         train_counts = phase_train(tmp, card)
         state, batch, eps = phase_train_step(tmp, unet, card)
         phase_train_cpu_parity(state, unet, batch, eps)
+        del state, batch, eps, vae, unet
+        synthetic, vox_counts = phase_voxelize(tmp, card)
+        unet_counts, class_weights = phase_train_unet(tmp, synthetic, card)
+        ustate, ubatch, cw = phase_unet_train_step(synthetic, class_weights, card)
+        phase_unet_train_cpu_parity(ustate, ubatch, cw)
 
-    # launches on the main paths: generation (fused and host) and training
+    # launches on the main paths: generation (fused and host), VAE
+    # training, the two dataset builds, U-Net training
     gen_counts = [{"bias": r["by_epilogue"]["bias"],
                    "folded": sum(r["by_epilogue"][e] for e in FOLDED),
-                   "dx": 0, "dw": 0} for r in runs.values()]
-    paths = gen_counts + [train_counts]
+                   "dx": 0, "dw": 0, "vox": 0} for r in runs.values()]
+    paths = gen_counts + [train_counts, vox_counts, unet_counts]
     count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
-                 "conv3d_same[dx]": "dx", "conv3d_dw": "dw"}
+                 "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox"}
     kernels = []
     for entry, source, replaces, covers in KERNEL_ENTRIES:
         mine = [r for r in rows if covers(r)]
         by_kind = {}
         for r in mine:
             by_kind[r["bound_by"]] = by_kind.get(r["bound_by"], 0.0) + r["bound_ms"]
+        libs = [r["library_ms"] for r in mine]
         kernels.append({
             "name": entry,
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": sum(p[count_key[entry]] for p in paths),
+            "launches": sum(p.get(count_key[entry], 0) for p in paths),
             "max_abs_err": max(r["abs_err"] for r in mine),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),
             "bound_by": max(by_kind, key=by_kind.get),
-            "library_ms": sum(r["library_ms"] for r in mine),
+            "library_ms": None if None in libs else sum(libs),
         })
         check(kernels[-1]["launches"] > 0, f"{entry} was not launched by the paths")
     print(json.dumps({"kernels": kernels}))

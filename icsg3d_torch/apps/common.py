@@ -11,6 +11,7 @@ holds none.
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 from typing import Optional, Tuple
@@ -150,18 +151,22 @@ def _finish(model, path, device):
 
 
 def load_vae(cfg: VAEConfig, checkpoint: Optional[str],
-             device="cpu", seed: int = 0) -> ConditionalDFCVAE:
-    """VAE with weights from ``checkpoint`` (.npz), else a seeded init."""
+             device="cuda", seed: int = 0) -> ConditionalDFCVAE:
+    """VAE with weights from ``checkpoint`` (.npz), else a seeded init, on
+    ``device`` (raises when it is CUDA and CUDA is unavailable)."""
+    device = resolve_device(str(device))
     path = weights_path(checkpoint)
     gen = torch.Generator().manual_seed(seed)
     return _finish(ConditionalDFCVAE(cfg, gen), path, device)
 
 
 def load_unet(cfg: UNetConfig, checkpoint: Optional[str], grid_d: int = 32,
-              device="cpu", seed: int = 0) -> UNet3D:
-    """U-Net with weights from ``checkpoint`` (.npz), else a seeded init.
+              device="cuda", seed: int = 0) -> UNet3D:
+    """U-Net with weights from ``checkpoint`` (.npz), else a seeded init, on
+    ``device`` (raises when it is CUDA and CUDA is unavailable).
     ``grid_d`` is kept for signature parity: the U-Net is fully
     convolutional, so its weights do not depend on it."""
+    device = resolve_device(str(device))
     path = weights_path(checkpoint)
     gen = torch.Generator().manual_seed(seed)
     return _finish(UNet3D(cfg, gen), path, device)
@@ -173,3 +178,28 @@ def grid_input(density: np.ndarray, coords: np.ndarray) -> np.ndarray:
         [density[..., None].astype(np.float32), coords.astype(np.float32)],
         axis=-1,
     )
+
+
+def finish_history(args, history):
+    """Write ``<args.ckpt>/history.json`` for a trainer CLI: on ``--resume``
+    appended to the earlier run's, truncated to the epochs its checkpoint
+    holds (``args._resumed_epochs``); no loss plot."""
+    os.makedirs(args.ckpt, exist_ok=True)
+    hist_path = os.path.join(args.ckpt, "history.json")
+    if args.resume and os.path.exists(hist_path):
+        try:
+            with open(hist_path) as f:
+                prev = json.load(f)
+            done = getattr(args, "_resumed_epochs", None)
+            if done is not None:
+                prev = prev[:done]
+            history = prev + history
+        except (ValueError, OSError):
+            pass  # unreadable prior history: keep this run's alone
+    with open(hist_path, "w") as f:
+        json.dump(history, f, indent=1)
+    if history:
+        print(f"done; best val loss "
+              f"{min(h['val']['loss'] for h in history):.4f} -> {args.ckpt}")
+    else:
+        print(f"done; 0 epochs ran -> {args.ckpt}")

@@ -18,8 +18,6 @@ parameters; on the CPU in float32.
 from __future__ import annotations
 
 import argparse
-import json
-import os
 import time
 
 import numpy as np
@@ -137,7 +135,7 @@ def main(argv=None):
     if args.resume and common.weights_path(args.ckpt, "latest"):
         CheckpointManager(args.ckpt).restore(state, "latest")
         print(f"resumed from {args.ckpt}/latest at step {state.step}")
-        # epochs actually in this checkpoint: _finish truncates any prior
+        # epochs actually in this checkpoint: finish_history truncates any prior
         # history beyond it
         args._resumed_epochs = state.step // max(
             1, len(train_ids) // args.batch_size
@@ -200,7 +198,7 @@ def main(argv=None):
             shuffle_seed=args.seed + state.step,
             cache_true_features=args.cache_true_features, **run,
         )
-        _finish(args, history)
+        common.finish_history(args, history)
         return history
 
     def batches(ids, shuffle, seed):
@@ -229,32 +227,8 @@ def main(argv=None):
         batches(val_ids, False, 0),
         **run,
     )
-    _finish(args, history)
+    common.finish_history(args, history)
     return history
-
-
-def _finish(args, history):
-    """Write history.json (appended to the resumed run's, truncated to the
-    epochs its checkpoint holds); no loss plot."""
-    os.makedirs(args.ckpt, exist_ok=True)
-    hist_path = os.path.join(args.ckpt, "history.json")
-    if args.resume and os.path.exists(hist_path):
-        try:
-            with open(hist_path) as f:
-                prev = json.load(f)
-            done = getattr(args, "_resumed_epochs", None)
-            if done is not None:
-                prev = prev[:done]
-            history = prev + history
-        except (ValueError, OSError):
-            pass  # unreadable prior history: keep this run's alone
-    with open(hist_path, "w") as f:
-        json.dump(history, f, indent=1)
-    if history:
-        print(f"done; best val loss "
-              f"{min(h['val']['loss'] for h in history):.4f} -> {args.ckpt}")
-    else:
-        print(f"done; 0 epochs ran -> {args.ckpt}")
 
 
 if __name__ == "__main__":

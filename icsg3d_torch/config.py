@@ -1,4 +1,4 @@
-"""Configuration dataclasses of the generation path.
+"""Configuration dataclasses of the port.
 
 Same fields and defaults as the counterparts in icsg3d_tpu/config.py
 (tests/test_torch_guards.py holds them equal); ``voxel_sizes`` uses numpy.
@@ -49,6 +49,21 @@ class GridSpec:
         """Per-axis voxel edge lengths dv for lattice lengths abc."""
         abc = np.asarray(abc)
         return abc * (1.0 + 2.0 * self.eps_frac) / self.d
+
+
+@dataclasses.dataclass(frozen=True)
+class VoxelizerConfig:
+    """Voxelization of structures into density/species grids.
+
+    Reference: create_matrices.py:41-81 CLI defaults.
+    """
+
+    grid: GridSpec = GridSpec()
+    sigma_frac: float = 1.0     # Gaussian width as fraction of ionic radius
+    label_frac: float = 1.0     # labeling radius as fraction of ionic radius
+    max_sites: int = 40         # skip structures with more sites
+    site_pad: int = 64          # padded site-array length (device shapes)
+    n_rot: int = 10             # 90-degree rotation augmentations per sample
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,6 +119,27 @@ class VAEConfig:
                 f"{2 ** (n - 1)}); use fewer/more filter blocks, e.g. "
                 f"filters={(16, 32, 64)!r} for d=8"
             )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization + checkpointing knobs shared by the training drivers.
+
+    Reference defaults: U-Net bs=10 lr=3e-6 (train_unet.py:53-61), VAE bs=20
+    lr=5e-4 250 epochs (train_vae.py:46-52, vae/lattice_vae.py:98), CGCNN
+    bs=32 lr=1e-3 60 epochs (train_cgcnn.py:38,89,102).
+    """
+
+    batch_size: int = 20
+    learning_rate: float = 5e-4
+    epochs: int = 50
+    split_frac: float = 0.8
+    split_seed: int = 28        # utils.py:36 default seed
+    n_rot: int = 10
+    seed: int = 0
+    checkpoint_dir: str = "checkpoints"
+    keep_best_only: bool = True
+    log_every_steps: int = 50
 
 
 @dataclasses.dataclass(frozen=True)

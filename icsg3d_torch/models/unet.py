@@ -1,4 +1,5 @@
-"""3D U-Net species segmenter, eval mode, and its perceptual taps.
+"""3D U-Net species segmenter (eval and training modes) and its
+perceptual taps.
 
 Counterpart of icsg3d_tpu/models/unet.py (reference AtomUnet,
 unet/unet.py:272-355): a 3-level encoder-decoder over (B, d, d, d, 4) grids
@@ -13,7 +14,11 @@ with skip concats ``[skip, x]`` and two f32 1x1x1 heads, ``head_soft``
     dec L2: c11=256, c12=128  -> up, concat c2
     dec L1: c13=128, c14=128  -> heads
 
-Each conv -> ReLU -> BN block of the forward is one fused kernel call.
+Each conv -> ReLU -> BN block of the eval forward is one fused kernel
+call; ``train=True`` runs each block as the differentiable conv (epilogue
+``bias``; K1 as dx and K2 in the backward), ReLU, then batch-statistics BN,
+which updates the running statistics.  The heads are f32 1x1x1 convs, plain
+matmuls, in both modes.
 ``unet_features`` is the DFC-VAE's feature extractor: convs 1..max(taps)
 only, returning the post-ReLU, pre-BN activations of the tap convs.
 """
@@ -62,8 +67,10 @@ class UNet3D(nn.Module):
         self.head_soft = Conv3d(ch, cfg.num_classes, 1, generator)
         self.head_sig = Conv3d(ch, 1, 1, generator)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """x: (B, D, H, W, C) density+coordinate grid.
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """x: (B, D, H, W, C) density+coordinate grid; ``train`` selects
+        batch-statistics BN (unet/unet.py:276-278).
 
         Returns (soft_logits (B,D,H,W,num_classes), sig_logits (B,D,H,W,1)),
         both float32.
@@ -78,7 +85,7 @@ class UNet3D(nn.Module):
             idx += 1
             return conv_block(
                 h, getattr(self, f"conv{idx}"), getattr(self, f"bn{idx}"),
-                order="relu_bn", act="relu",
+                order="relu_bn", act="relu", train=train,
             )
 
         skips = []

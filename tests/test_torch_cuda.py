@@ -214,3 +214,97 @@ def test_dw_wrapper_checks_on_card(cuda_device):
         kdw.conv3d_dw_cuda(x.transpose(1, 2), x)
     with pytest.raises(ValueError, match="want x"):
         kdw.conv3d_dw_cuda(x, x[:, :2])
+
+
+def _voxel_batch(n, seed, site_pad=64, kinds=("perovskite", "rocksalt")):
+    """n synthetic structures padded to ``site_pad`` sites, as the dataset
+    build feeds the voxelizer: (sites, z, sigma, mask, abc) float32."""
+    import numpy as np
+
+    from icsg3d_torch.data.synthetic import random_structures
+    from icsg3d_torch.ops.voxelize import pad_sites
+
+    rows = []
+    for s in random_structures(n, seed=seed, kinds=kinds):
+        N, z, r = s.site_arrays()
+        cart = N * np.asarray(s.lattice.abc, np.float64)
+        rows.append((*pad_sites(cart, z, r, site_pad),
+                     np.array(s.lattice.abc, np.float32)))
+    return [torch.from_numpy(np.stack([r[i] for r in rows])) for i in range(5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d", [(3, 16), (256, 32)])
+def test_voxelize_kernel_matches_reference_on_card(cuda_device, n, d):
+    """K4 against its plain version on the same operands: species
+    identical, density within rtol 2e-4 / atol 1e-6 (sums over sites in
+    another order); a second launch gives the same bits."""
+    from icsg3d_torch.kernels import voxelize as kv
+
+    args = [t.to(cuda_device) for t in _voxel_batch(n, seed=n)]
+    n0 = kv.launches
+    dens, spec = kv.voxelize_cuda(*args, d, 0.25, 1.0)
+    torch.cuda.synchronize()
+    assert kv.launches == n0 + 1
+    ref_d, ref_s = kv.voxelize_reference(*args, d, 0.25, 1.0)
+    assert dens.shape == spec.shape == (n, d, d, d)
+    assert torch.equal(spec, ref_s)
+    assert torch.allclose(dens, ref_d, rtol=2e-4, atol=1e-6)
+    assert int((spec > 0).sum()) > 0
+    again = kv.voxelize_cuda(*args, d, 0.25, 1.0)
+    assert torch.equal(dens, again[0]) and torch.equal(spec, again[1])
+
+
+@pytest.mark.cuda
+def test_voxelize_wrapper_checks_on_card(cuda_device):
+    from icsg3d_torch.kernels import voxelize as kv
+
+    args = [t.to(cuda_device) for t in _voxel_batch(2, seed=0)]
+    with pytest.raises(ValueError, match="CUDA"):
+        kv.voxelize_cuda(*[t.cpu() for t in args], 8, 0.25)
+    with pytest.raises(ValueError, match="float32"):
+        kv.voxelize_cuda(args[0].double(), *args[1:], 8, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        kv.voxelize_cuda(args[0].transpose(0, 1).contiguous().transpose(0, 1),
+                         *args[1:], 8, 0.25)
+    big = [t.to(cuda_device) for t in _voxel_batch(1, seed=0,
+                                                    site_pad=kv.MAX_SITES + 1)]
+    with pytest.raises(ValueError, match="sites"):
+        kv.voxelize_cuda(*big, 8, 0.25)
+
+
+@pytest.mark.cuda
+def test_unet_train_step_on_card_matches_cpu(cuda_device):
+    """One U-Net train step's loss and gradients in float32 (the FMA
+    kernels on the card: K1 forward, K1 as dx, K2, through the Function)
+    against the CPU's plain versions: 14 forward, 13 dx and 14 dW
+    launches, every gradient within 2e-3 of its max."""
+    import numpy as np
+
+    from icsg3d_torch.config import UNetConfig
+    from icsg3d_torch.train.unet import _unet_losses, create_unet_state
+
+    cfg = UNetConfig(num_classes=12, enc_filters=((4, 8), (8, 8), (8, 16)),
+                     bottom_filters=(16, 16), dec_filters=((16, 8), (8, 8), (8, 8)),
+                     dtype="float32")
+    rng = np.random.default_rng(6)
+    batch = {"density": rng.random((2, 8, 8, 8), np.float32),
+             "abc": rng.uniform(3, 6, (2, 3)).astype(np.float32),
+             "labels": rng.integers(0, 12, (2, 8, 8, 8)).astype(np.uint8)}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = create_unet_state(cfg, 1e-3, 0, dev).model
+        b = {key: torch.from_numpy(v).to(dev) for key, v in batch.items()}
+        counts = (k.launches, k.launches_dx, kdw.launches)
+        loss, _ = _unet_losses(model, b, torch.linspace(0, 2, 12, device=dev), True)
+        loss.backward()
+        torch.cuda.synchronize()
+        launched = (k.launches - counts[0], k.launches_dx - counts[1],
+                    kdw.launches - counts[2])
+        assert launched == ((14, 13, 14) if dev == "cuda" else (0, 0, 0))
+        out[dev] = (float(loss.detach()), {n: p.grad.detach().cpu()
+                                  for n, p in model.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for n, g in out["cpu"][1].items():
+        err = float((out["cuda"][1][n] - g).abs().max())
+        assert err <= 2e-3 * max(float(g.abs().max()), 1e-6), n

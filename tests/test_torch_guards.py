@@ -30,6 +30,8 @@ VERBATIM = [
     "crystal/cif.py",
     "data/splits.py",
     "train/common.py",
+    "utils/timeout.py",
+    "data/class_weights.py",
 ]
 
 NO_JAX = """
@@ -63,6 +65,15 @@ hist = tv.main(["--data", sys.argv[1] + "/train", "--nrot", "0", "--epochs", "1"
                 "--filters", "4,8", "--latent", "8", "--batch-size", "2",
                 "--device", "cpu", "--ckpt", sys.argv[1] + "/ckpt"])
 assert len(hist) == 1
+import icsg3d_torch.apps.voxelize as vx
+import icsg3d_torch.apps.train_unet as tu
+ds = vx.main(["--synthetic", "6", "--kinds", "perovskite,rocksalt", "--d", "8",
+              "--nrot", "1", "--out", sys.argv[1] + "/vox", "--device", "cpu"])
+assert len(ds) == 12 and "species" in ds.arrays
+hist = tu.main(["--data", sys.argv[1] + "/vox", "--nrot", "1", "--epochs", "1",
+                "--batch-size", "2", "--num-classes", "12", "--device", "cpu",
+                "--ckpt", sys.argv[1] + "/unet"])
+assert len(hist) == 1
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "optax", "orbax", "icsg3d_tpu")
              and sys.modules[m] is not None)
@@ -72,8 +83,8 @@ print("NO_JAX_OK")
 
 
 def test_port_imports_and_runs_with_jax_blocked(tmp_path):
-    """generate and train_vae run end to end with JAX, Flax, optax, Orbax
-    and icsg3d_tpu unimportable."""
+    """generate, train_vae, voxelize and train_unet run end to end with
+    JAX, Flax, optax, Orbax and icsg3d_tpu unimportable."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", NO_JAX, str(tmp_path)], cwd=str(tmp_path),
@@ -100,6 +111,25 @@ def test_verbatim_copies_match_their_originals(rel):
     assert copy[len(header):] == original.replace("icsg3d_tpu", "icsg3d_torch")
 
 
+def test_synthetic_is_a_copy_with_a_device_pass_through():
+    """data/synthetic.py is verbatim but for build_dataset's ``device``,
+    passed on to voxelize_structures."""
+    original = (REPO / "icsg3d_tpu" / "data" / "synthetic.py").read_text()
+    copy = (REPO / "icsg3d_torch" / "data" / "synthetic.py").read_text()
+    header = ("# Copy of icsg3d_tpu/data/synthetic.py; build_dataset adds a "
+              "pass-through `device`.\n")
+    assert copy.startswith(header)
+    want = original.replace("icsg3d_tpu", "icsg3d_torch").replace(
+        '    kinds: Tuple[str, ...] = ("perovskite",),\n) -> GridDataset:',
+        '    kinds: Tuple[str, ...] = ("perovskite",),\n    device="cuda",\n'
+        ') -> GridDataset:').replace(
+        "        structures, ids, targets, cfg=cfg, n_rot=n_rot, seed=seed,\n    )",
+        "        structures, ids, targets, cfg=cfg, n_rot=n_rot, seed=seed,\n"
+        "        device=device,\n    )")
+    assert want != original.replace("icsg3d_tpu", "icsg3d_torch")
+    assert copy[len(header):] == want
+
+
 def test_batch_iterator_is_a_verbatim_copy():
     import inspect
 
@@ -111,7 +141,8 @@ def test_batch_iterator_is_a_verbatim_copy():
 
 
 @pytest.mark.parametrize("name", ["GridSpec", "VAEConfig", "UNetConfig",
-                                  "PipelineConfig"])
+                                  "PipelineConfig", "VoxelizerConfig",
+                                  "TrainConfig"])
 def test_config_defaults_match_jax(name):
     jcls, tcls = getattr(jcfg, name), getattr(tcfg, name)
     jf = [(f.name, f.type) for f in dataclasses.fields(jcls)]
@@ -157,3 +188,45 @@ def test_checkpoint_directory_resolves_to_its_npz(tmp_path):
     (tmp_path / "latest.npz").write_bytes(b"")
     assert tcommon.weights_path(str(tmp_path)) == str(tmp_path / "best.npz")
     assert tcommon.weights_path(str(tmp_path), "latest") == str(tmp_path / "latest.npz")
+
+
+def test_voxelize_batch_refuses_other_devices():
+    from icsg3d_torch.ops.voxelize import voxelize_batch
+
+    t = torch.zeros(1, 4, 3, device="meta")
+    z = torch.zeros(1, 4, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        voxelize_batch(t, z, z, z, torch.zeros(1, 3, device="meta"),
+                       tcfg.GridSpec(d=8))
+
+
+def test_voxelize_cuda_refuses_cpu_tensors():
+    """The kernel wrapper never falls back to its plain version."""
+    from icsg3d_torch.kernels import voxelize as kv
+
+    z = torch.zeros(1, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kv.voxelize_cuda(torch.zeros(1, 4, 3), z, z, z, torch.ones(1, 3), 8, 0.25)
+
+
+@pytest.mark.parametrize("loader", ["load_vae", "load_unet"])
+def test_model_loaders_default_to_the_card(loader, monkeypatch):
+    """Without a device the loaders ask for CUDA and raise where it is
+    missing, instead of quietly building a CPU model."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = (tcfg.VAEConfig(grid=tcfg.GridSpec(d=8), filters=(4, 8), latent_dim=8)
+           if loader == "load_vae" else tcfg.UNetConfig(num_classes=12))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(tcommon, loader)(cfg, None)
+
+
+@pytest.mark.parametrize("app", ["voxelize", "train_unet"])
+def test_new_clis_refuse_cuda_when_unavailable(app, monkeypatch, tmp_path):
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"icsg3d_torch.apps.{app}")
+    argv = (["--synthetic", "2", "--out", str(tmp_path / "x")] if app == "voxelize"
+            else ["--data", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
