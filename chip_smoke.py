@@ -77,6 +77,27 @@ Phases (any failure exits nonzero, before the result line):
 13. GPU vs CPU for one U-Net train step (batch 2, same weights and
    batch): loss within 2e-2 relative, weight-gradient cosines of conv1
    and conv14 at least 0.95.
+14. Depth-VALID kernels (``--spatial``), each against its plain version on
+   the same operands, at every shape the two sharded train steps launch
+   on a 1x2 mesh (a slab of edge/2 output planes, full batch): K1 VALID
+   (``conv3d_valid_cuda`` vs ``conv3d_valid_reference``; library F.conv3d
+   with padding (0, 1, 1)), its full-window dx (``conv3d_dx_valid_cuda``;
+   library torch.nn.grad.conv3d_input) and K2 VALID
+   (``conv3d_dw_valid_cuda``; library conv3d_weight), with the bounds of
+   phase 3.
+15. Sharded training: ``apps.train_vae.main --spatial 2 --device
+   cuda:0,cuda:0`` at production width for one epoch (4 steps + 1 val
+   batch), then ``apps.train_unet.main --spatial 2`` for one epoch at
+   batch 10 (24 steps + 6 val batches).  Per VAE train step: 20 VALID
+   forwards, 18 SAME forwards (the frozen U-Net taps), 18 VALID dx + 9
+   SAME dx, 20 VALID dW; per VAE eval step 20 VALID (18 folded) + 18 SAME.
+   Per U-Net train step 28 VALID forwards, 26 VALID dx, 28 VALID dW; per
+   eval step 28 VALID folded.
+16. ``--spatial 2`` against ``--spatial 1``: for each trainer one train
+   step from the same weights and batch, loss within 1e-4 relative and
+   every weight gradient's cosine at least 0.999; the launch counts of
+   one sharded train and eval step alone; both train steps' times
+   (CUDA-event medians, in turns); one profiled sharded train step.
 
 It imports nothing of JAX.  The last two stdout lines are the kernels
 JSON object and then ``{"ok": true, "device": {...}}``.
@@ -185,6 +206,11 @@ REAL_CIFS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
                          "fixtures", "real_cifs")
 SFU_EXP_PER_SM_CLOCK = 16
 
+# Depth sharding: the spatial mesh axis of the sharded phases, a 1x2 mesh
+# of the one card.
+SPATIAL = 2
+SPATIAL_DEVICES = ",".join(["cuda:0"] * SPATIAL)
+
 # The H100 SXM's dense peaks and memory rate (NVIDIA's data sheet).
 PEAK_FLOPS = {"bf16": 989.4e12, "f32": 66.9e12}
 MEM_BYTES_PER_S = 3.35e12
@@ -205,6 +231,12 @@ KERNEL_ENTRIES = [
      "icsg3d_tpu/ops/lowc_conv.py:289", lambda r: r["pass"] == "dw"),
     ("voxelize", "icsg3d_torch/csrc/voxelize.cu",
      "icsg3d_tpu/ops/pallas_voxelize.py:41", lambda r: r["pass"] == "vox"),
+    ("conv3d_same[valid]", "icsg3d_torch/csrc/conv3d.cu",
+     "icsg3d_tpu/ops/lowc_conv.py:586", lambda r: r["pass"] == "fwd_valid"),
+    ("conv3d_same[dx_valid]", "icsg3d_torch/csrc/conv3d.cu",
+     "icsg3d_tpu/ops/lowc_conv.py:615", lambda r: r["pass"] == "dx_valid"),
+    ("conv3d_dw[valid]", "icsg3d_torch/csrc/conv3d_dw.cu",
+     "icsg3d_tpu/ops/lowc_conv.py:624", lambda r: r["pass"] == "dw_valid"),
 ]
 
 # 3x3x3 convs per generation run: the encoder once (4 blocks + Conv_4),
@@ -279,21 +311,25 @@ def phase_build():
 
 
 def bound_ms(pas: str, cin: int, cout: int, edge: int, idt: str, odt: str,
-             batch: int):
+             batch: int, depth=None):
     """The least time the card could take for one conv pass at ``batch``:
     the larger of its FLOPs over the dense peak of its input type and its
     bytes (x read once, the other activation read (dw) or written (fwd,
-    dx) once, the weights) over the memory rate.  Returns (ms,
-    "operations" or "bytes")."""
-    vox = batch * edge ** 3
+    dx) once, the weights) over the memory rate.  ``depth`` (VALID modes):
+    the output planes of a halo-padded slab of depth + 2 input planes
+    (fwd, dw; for dx, the cotangent's planes and depth + 2 planes of dx);
+    FLOPs count the products of the output (cotangent) voxels.  Returns
+    (ms, "operations" or "bytes")."""
+    vox = batch * edge ** 2 * (edge if depth is None else depth)
+    xvox = vox if depth is None else batch * edge ** 2 * (depth + 2)
     flops = 2 * vox * 27 * cin * cout
     i, o, w = ITEMSIZE[idt], ITEMSIZE[odt], 27 * cin * cout
     if pas == "fwd":
-        nbytes = vox * cin * i + vox * cout * o + w * i
+        nbytes = xvox * cin * i + vox * cout * o + w * i
     elif pas == "dx":
-        nbytes = vox * cout * i + vox * cin * o + w * i
+        nbytes = vox * cout * i + xvox * cin * o + w * i
     else:  # dw: x and g read, dW written in f32
-        nbytes = vox * cin * i + vox * cout * i + w * 4
+        nbytes = xvox * cin * i + vox * cout * i + w * 4
     t_ops, t_bytes = flops / PEAK_FLOPS[idt], nbytes / MEM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
@@ -655,10 +691,17 @@ def read_counts() -> dict:
     from icsg3d_torch.kernels import conv3d_dw as kdw
     from icsg3d_torch.kernels import voxelize as kv
 
-    by = dict(k.launches_by_epilogue)
+    by, byv = dict(k.launches_by_epilogue), dict(k.launches_valid_by_epilogue)
     return {"fwd": k.launches, "bias": by["bias"],
             "folded": sum(by[e] for e in FOLDED), "dx": k.launches_dx,
-            "dw": kdw.launches, "vox": kv.launches}
+            "dw": kdw.launches, "vox": kv.launches,
+            "fwd_valid": k.launches_valid, "valid_folded": sum(byv[e] for e in FOLDED),
+            "dx_valid": k.launches_dx_valid, "dw_valid": kdw.launches_valid}
+
+
+# read_counts() of a run that launched nothing
+NO_LAUNCHES = {key: 0 for key in ("fwd", "bias", "folded", "dx", "dw", "vox",
+                                  "fwd_valid", "valid_folded", "dx_valid", "dw_valid")}
 
 
 def phase_train(tmp: str, card: str):
@@ -756,12 +799,12 @@ def phase_train_step(tmp: str, unet, card: str):
     eps = torch.randn(BATCH, cfg.latent_dim, generator=gen, device=DEVICE)
 
     for label, step, want in (
-        ("train", train_step, {"fwd": FWD_PER_STEP, "bias": FWD_PER_STEP,
-                               "folded": 0, "dx": DX_PER_STEP, "dw": DW_PER_STEP,
-                               "vox": 0}),
-        ("eval", eval_step, {"fwd": FWD_PER_STEP, "bias": 1 + 2 * len(UNET_PREFIX),
-                             "folded": len(VAE_CONVS) - 1, "dx": 0, "dw": 0,
-                             "vox": 0}),
+        ("train", train_step, {**NO_LAUNCHES, "fwd": FWD_PER_STEP,
+                               "bias": FWD_PER_STEP, "dx": DX_PER_STEP,
+                               "dw": DW_PER_STEP}),
+        ("eval", eval_step, {**NO_LAUNCHES, "fwd": FWD_PER_STEP,
+                             "bias": 1 + 2 * len(UNET_PREFIX),
+                             "folded": len(VAE_CONVS) - 1}),
     ):
         sync()
         reset_counts()
@@ -1099,10 +1142,11 @@ def phase_train_unet(tmp: str, data: str, card: str):
         cw = json.load(f)["class_weights"]
     check(len(cw) == 95 and cw[0] == 0.0, "class_weights.json is malformed")
     per = UNET_EPOCHS * n_train
-    want = {"fwd": per * UNET_CONVS_N + UNET_EPOCHS * n_val * UNET_CONVS_N,
+    want = {**NO_LAUNCHES,
+            "fwd": per * UNET_CONVS_N + UNET_EPOCHS * n_val * UNET_CONVS_N,
             "bias": per * UNET_CONVS_N,
             "folded": UNET_EPOCHS * n_val * UNET_CONVS_N,
-            "dx": per * (UNET_CONVS_N - 1), "dw": per * UNET_CONVS_N, "vox": 0}
+            "dx": per * (UNET_CONVS_N - 1), "dw": per * UNET_CONVS_N}
     check(counts == want, f"train_unet: launches {counts}, want {want} "
           f"({UNET_EPOCHS} epochs x ({n_train} train + {n_val} eval) steps)")
     print(f"[train-unet] train_unet.main: {UNET_EPOCHS} epochs x {n_train} steps + "
@@ -1158,10 +1202,9 @@ def phase_unet_train_step(data: str, class_weights, card: str):
              for k, v in prepare_unet_batch(raw, 95, device_coords=True).items()}
     n = UNET_CONVS_N
     for label, step, want in (
-        ("train", train_step, {"fwd": n, "bias": n, "folded": 0, "dx": n - 1,
-                               "dw": n, "vox": 0}),
-        ("eval", eval_step, {"fwd": n, "bias": 0, "folded": n, "dx": 0, "dw": 0,
-                             "vox": 0}),
+        ("train", train_step, {**NO_LAUNCHES, "fwd": n, "bias": n, "dx": n - 1,
+                               "dw": n}),
+        ("eval", eval_step, {**NO_LAUNCHES, "fwd": n, "folded": n}),
     ):
         sync()
         reset_counts()
@@ -1274,6 +1317,280 @@ def phase_unet_train_cpu_parity(state, batch, cw):
           f"weight-gradient cosines {cos}")
 
 
+def phase_valid_kernels(card: str, sets, same_rows):
+    """K1 VALID, its full-window dx and K2 VALID at the slab shapes of
+    ``sets`` ((pass, shapes, batch)): each cell of a 1 x SPATIAL mesh holds
+    a slab of edge // SPATIAL output planes of the full batch, read with
+    its two halo planes.  Each pass's sum over the SPATIAL cells is printed
+    beside the SAME kernel's time on the convs ``same_rows`` (phase 3)
+    measured at the same batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from icsg3d_torch.kernels import conv3d as k
+    from icsg3d_torch.kernels import conv3d_dw as kdw
+
+    dt = {"bf16": torch.bfloat16, "f32": torch.float32}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    rows = []
+    cl3d = torch.channels_last_3d
+    print(f"[valid-kernels] 1x{SPATIAL} mesh slabs, card: {card}")
+    print("  pass conv            batch Cin->Cout @edge planes type  max_abs_err  "
+          "rel_err  bound    kernel_ms  plain_ms  library_ms  bound_ms")
+    for pas, shapes, batch in sets:
+        mine = []
+        for name, cin, cout, edge, idt in shapes:
+            t, d = dt[idt], edge // SPATIAL
+
+            def rand(*shape):
+                return torch.randn(*shape, device="cuda", generator=gen)
+
+            if pas == "fwd":
+                x = rand(batch, d + 2, edge, edge, cin).to(t)
+                w = (rand(3, 3, 3, cin, cout) / (27 * cin) ** 0.5).to(t)
+                b = 0.1 * rand(cout)
+                args, run, plain = (x, w, b), k.conv3d_valid_cuda, k.conv3d_valid_reference
+                xc = x.permute(0, 4, 1, 2, 3)
+                wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=cl3d)
+
+                def library():
+                    y = F.conv3d(xc, wc, padding=(0, 1, 1)).permute(0, 2, 3, 4, 1)
+                    return (y.float() + b).to(t)
+            elif pas == "dx":
+                g = rand(batch, d, edge, edge, cout).to(t)
+                w = (rand(3, 3, 3, cin, cout) / (27 * cout) ** 0.5).to(t)
+                args, run, plain = (g, w), k.conv3d_dx_valid_cuda, k.conv3d_dx_valid_reference
+                wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=cl3d)
+                gc = g.permute(0, 4, 1, 2, 3)
+
+                def library():
+                    return torch.nn.grad.conv3d_input(
+                        (batch, cin, d + 2, edge, edge), wc, gc, padding=(0, 1, 1))
+            else:
+                x = rand(batch, d + 2, edge, edge, cin).to(t)
+                g = rand(batch, d, edge, edge, cout).to(t)
+                args = (x, g)
+                run, plain = kdw.conv3d_dw_valid_cuda, kdw.conv3d_dw_valid_reference
+                xc, gc = x.permute(0, 4, 1, 2, 3), g.permute(0, 4, 1, 2, 3)
+
+                def library():
+                    return torch.nn.grad.conv3d_weight(
+                        xc, (cout, cin, 3, 3, 3), gc, padding=(0, 1, 1))
+            got = run(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            abs_err = float((got.float() - ref.float()).abs().max())
+            rel_err = abs_err / max(float(ref.float().abs().max()), 1e-30)
+            bound = 1e-3 if pas == "dw" else (1e-2 if idt == "bf16" else 1e-4)
+            check(got.shape == ref.shape and bool(torch.isfinite(got.float()).all()),
+                  f"{pas} valid {name}: shape {tuple(got.shape)} or non-finite output")
+            check(rel_err <= bound, f"{pas} valid {name} {cin}->{cout}@{edge}: rel err "
+                  f"{rel_err:.3e} > {bound:g}")
+            ms = cuda_median_ms(lambda: run(*args))
+            plain_ms = cuda_median_ms(lambda: plain(*args))
+            library_ms = cuda_median_ms(library)
+            bms, bby = bound_ms(pas, cin, cout, edge, idt, idt, batch, depth=d)
+            print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} "
+                  f"{d:3d}+2 {idt:4s} {abs_err:11.3e} {rel_err:8.2e} {bound:6g} "
+                  f"{ms:10.4f} {plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}")
+            mine.append(dict(model=name, cin=cin, cout=cout, edge=edge, batch=batch,
+                             abs_err=abs_err, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bms, bound_by=bby,
+                             epilogue="bias" if pas == "fwd" else None,
+                             **{"pass": pas + "_valid"}))
+        rows += mine
+        print(f"  {pas} valid at batch {batch}, {len(mine)} shapes: kernel "
+              f"{sum(r['ms'] for r in mine):.3f} ms, plain "
+              f"{sum(r['plain_ms'] for r in mine):.3f} ms, library "
+              f"{sum(r['library_ms'] for r in mine):.3f} ms, bound "
+              f"{sum(r['bound_ms'] for r in mine):.3f} ms")
+        same = {r["model"]: r["ms"] for r in same_rows if r["pass"] == pas
+                and r["batch"] == batch and r.get("epilogue") in (None, "bias")}
+        both = [r for r in mine if r["model"] in same]
+        if both:
+            cells = SPATIAL * sum(r["ms"] for r in both)
+            whole = sum(same[r["model"]] for r in both)
+            print(f"  {pas} valid over {SPATIAL} cells vs SAME on the {len(both)} convs "
+                  f"measured at both: {cells:.3f} ms vs {whole:.3f} ms "
+                  f"(x{cells / whole:.3f})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def spatial_step_counts(model: str, train: bool) -> dict:
+    """Launches of one step on a 1 x SPATIAL mesh, where every 3x3x3 conv
+    of the model divides (one VALID launch per cell); the VAE step's frozen
+    U-Net taps stay SAME."""
+    cells = SPATIAL
+    if model == "vae":
+        n, taps = len(VAE_CONVS), len(UNET_PREFIX)
+        if train:
+            return {**NO_LAUNCHES, "fwd": 2 * taps, "bias": 2 * taps, "dx": taps,
+                    "fwd_valid": cells * n, "dx_valid": cells * (n - 1),
+                    "dw_valid": cells * n}
+        # eval: every VAE conv but the encoder's last runs a folded epilogue
+        return {**NO_LAUNCHES, "fwd": 2 * taps, "bias": 2 * taps,
+                "fwd_valid": cells * n, "valid_folded": cells * (n - 1)}
+    n = UNET_CONVS_N
+    if train:
+        return {**NO_LAUNCHES, "fwd_valid": cells * n, "dx_valid": cells * (n - 1),
+                "dw_valid": cells * n}
+    return {**NO_LAUNCHES, "fwd_valid": cells * n, "valid_folded": cells * n}
+
+
+def _steps_counts(model: str, n_train: int, n_val: int) -> dict:
+    tr, ev = spatial_step_counts(model, True), spatial_step_counts(model, False)
+    return {key: n_train * tr[key] + n_val * ev[key] for key in NO_LAUNCHES}
+
+
+def phase_train_spatial(tmp: str, unet_data: str, card: str):
+    """Both trainer CLIs at ``--spatial SPATIAL --device cuda:0,...`` at
+    production width, one epoch each; returns their summed launches."""
+    import numpy as np
+
+    from icsg3d_torch.apps import train_unet, train_vae
+
+    runs = [
+        ("vae", train_vae, ["--data", os.path.join(tmp, "train-data"), "--unet-ckpt",
+                            os.path.join(tmp, "unet.npz"), "--batch-size", str(BATCH)],
+         TRAIN_PARENTS, BATCH),
+        ("unet", train_unet, ["--data", unet_data, "--batch-size", str(UNET_BATCH)],
+         UNET_PARENTS, UNET_BATCH),
+    ]
+    total = dict(NO_LAUNCHES)
+    for label, app, argv, parents, batch in runs:
+        argv = argv + ["--epochs", "1", "--nrot", "0", "--device", SPATIAL_DEVICES,
+                       "--spatial", str(SPATIAL), "--seed", str(SEED),
+                       "--ckpt", os.path.join(tmp, f"{label}-spatial-ckpt")]
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = app.main(argv)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        n_train, n_val = int(0.8 * parents) // batch, (parents - int(0.8 * parents)) // batch
+        check(len(hist) == 1 and hist[0]["steps"] == n_train,
+              f"{label} --spatial {SPATIAL}: history {[h['steps'] for h in hist]}")
+        for split in ("train", "val"):
+            vals = [v for key, v in hist[0][split].items() if key != "ce_per_class"]
+            check(all(np.isfinite(v) for v in vals),
+                  f"{label} --spatial {SPATIAL}: non-finite {split} metrics")
+        want = _steps_counts(label, n_train, n_val)
+        check(counts == want, f"{label} --spatial {SPATIAL}: launches {counts}, want "
+              f"{want} ({n_train} train + {n_val} eval steps)")
+        total = {key: total[key] + counts[key] for key in total}
+        print(f"[train-spatial] {app.__name__.rsplit('.', 1)[-1]}.main --spatial "
+              f"{SPATIAL} --device {SPATIAL_DEVICES}: 1 epoch of {n_train} steps + "
+              f"{n_val} val batches at batch {batch} in {secs:.3f} s ({card}); epoch "
+              f"time {hist[0]['time']:.3f} s; train loss "
+              f"{hist[0]['train']['loss']:.4f}; launches {counts} = expected")
+    return total
+
+
+def phase_spatial_parity(tmp: str, unet_data: str, class_weights, card: str):
+    """``--spatial SPATIAL`` against ``--spatial 1``, for each trainer: one
+    train step's loss and weight gradients from the same weights and batch;
+    one sharded train and eval step's launches; both train steps' times."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps.common import load_unet
+    from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
+    from icsg3d_torch.data.store import GridDataset
+    from icsg3d_torch.parallel import make_mesh
+    from icsg3d_torch.train.state import TrainState
+    from icsg3d_torch.train.unet import (
+        _unet_losses,
+        create_unet_state,
+        make_unet_steps,
+        prepare_unet_batch,
+    )
+    from icsg3d_torch.train.vae import _vae_losses, create_vae_state, make_vae_steps
+
+    mesh = make_mesh(1, SPATIAL, devices=[torch.device("cuda", 0)] * SPATIAL)
+    unet = load_unet(UNetConfig(), os.path.join(tmp, "unet.npz"), device=DEVICE)
+    ds = GridDataset(os.path.join(tmp, "train-data"))
+    cond = np.zeros((BATCH, 10), np.float32)
+    cond[np.arange(BATCH), np.arange(BATCH) % 10] = 1.0
+    vae_batch = {key: torch.from_numpy(v).to(DEVICE) for key, v in (
+        ("density", np.array(ds.arrays["density"][:BATCH])),
+        ("abc", np.array(ds.arrays["lattice"][:BATCH, :3])), ("cond", cond))}
+    eps = torch.randn(BATCH, 256, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(SEED + 8))
+    uds = GridDataset(unet_data)
+    raw = {key: np.asarray(uds.arrays[key][:UNET_BATCH])
+           for key in ("density", "lattice", "species")}
+    unet_batch = {key: torch.from_numpy(v).to(DEVICE)
+                  for key, v in prepare_unet_batch(raw, 95, device_coords=True).items()}
+    cw = torch.from_numpy(class_weights).to(DEVICE)
+
+    cases = [
+        ("vae", create_vae_state(VAEConfig(grid=GridSpec(d=D)), 5e-4, SEED, DEVICE,
+                                 spatial_mesh=mesh),
+         lambda m: _vae_losses(m, unet, vae_batch, eps, train=True)[0],
+         lambda m: make_vae_steps(m, unet), (vae_batch, eps)),
+        ("unet", create_unet_state(UNetConfig(), 3e-6, SEED, DEVICE, spatial_mesh=mesh),
+         lambda m: _unet_losses(m, unet_batch, cw, train=True)[0],
+         lambda m: make_unet_steps(m, class_weights), (unet_batch,)),
+    ]
+    for label, sharded, loss_of, steps_of, step_args in cases:
+        plain = TrainState.create(copy.deepcopy(sharded.model),
+                                  sharded.optimizer.param_groups[0]["lr"])
+        plain.model.spatial_mesh = None
+        out = {}
+        for name, state in (("spatial", sharded), ("plain", plain)):
+            model = state.model
+            model.zero_grad(set_to_none=True)
+            loss = loss_of(model)
+            loss.backward()
+            out[name] = (float(loss.detach()), {
+                n: p.grad.detach().double().flatten()
+                for n, p in model.named_parameters() if n.endswith("kernel")})
+        (ls, gs), (lp, gp) = out["spatial"], out["plain"]
+        rel = abs(ls - lp) / abs(lp)
+        check(rel <= 1e-4, f"{label} --spatial {SPATIAL} vs 1: loss {ls} vs {lp} "
+              f"(rel {rel:.3e} > 1e-4)")
+        cos = {n: float(torch.nn.functional.cosine_similarity(gs[n], gp[n], dim=0))
+               for n in gs}
+        worst = min(cos, key=cos.get)
+        check(cos[worst] >= 0.999, f"{label} --spatial {SPATIAL} vs 1: gradient "
+              f"cosine of {worst} {cos[worst]:.6f} < 0.999")
+
+        train_s, eval_s = steps_of(sharded.model)
+        train_p, _ = steps_of(plain.model)
+        for kind, step, want in (("train", train_s, spatial_step_counts(label, True)),
+                                 ("eval", eval_s, spatial_step_counts(label, False))):
+            sync()
+            reset_counts()
+            step(sharded, *step_args)
+            sync()
+            got = read_counts()
+            check(got == want, f"one {label} {kind} step at --spatial {SPATIAL} "
+                  f"launched {got}, want {want}")
+        # in turns: plain, sharded, sharded, plain
+        times = {"plain": [], "spatial": []}
+        for name in ("plain", "spatial", "spatial", "plain"):
+            st, fn = (plain, train_p) if name == "plain" else (sharded, train_s)
+            times[name].append(cuda_median_ms(lambda: fn(st, *step_args), runs=5,
+                                              warmup=1))
+        ms = {name: statistics.mean(v) for name, v in times.items()}
+        batch = BATCH if label == "vae" else UNET_BATCH
+        print(f"[spatial-vs-1] {label} ({card}): loss {ls:.6f} (--spatial {SPATIAL}) vs "
+              f"{lp:.6f} (--spatial 1), rel {rel:.3e}; {len(cos)} weight-gradient "
+              f"cosines >= {cos[worst]:.6f} (lowest {worst}); one train/eval step at "
+              f"--spatial {SPATIAL} launched the expected "
+              f"{spatial_step_counts(label, True)} / {spatial_step_counts(label, False)}; "
+              f"train_step {ms['spatial']:.3f} ms (--spatial {SPATIAL}, "
+              f"{batch / ms['spatial'] * 1e3:.2f} grids/s) vs {ms['plain']:.3f} ms "
+              f"(--spatial 1, {batch / ms['plain'] * 1e3:.2f} grids/s), CUDA-event "
+              f"medians of 5 in turns {times}")
+        profile_step(lambda: train_s(sharded, *step_args), ms["spatial"],
+                     f"{label}-spatial-profile", card)
+        del sharded, plain
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     try:
         import torch
@@ -1295,6 +1612,10 @@ def main() -> None:
         ("dx", DX_SHAPES, BATCH), ("dw", DW_SHAPES, BATCH),
         ("dx", UNET_DX_NEW, UNET_BATCH), ("dw", UNET_TRAIN, UNET_BATCH)])
     rows += phase_voxelize_kernel(card)
+    rows += phase_valid_kernels(card, [
+        ("fwd", VAE_CONVS, BATCH), ("dx", VAE_CONVS[1:], BATCH), ("dw", VAE_CONVS, BATCH),
+        ("fwd", UNET_TRAIN, UNET_BATCH), ("dx", UNET_TRAIN[1:], UNET_BATCH),
+        ("dw", UNET_TRAIN, UNET_BATCH)], rows)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vae, unet, runs = phase_main_path(tmp, card)
         phase_breakdown(vae, unet, card)
@@ -1307,15 +1628,21 @@ def main() -> None:
         unet_counts, class_weights = phase_train_unet(tmp, synthetic, card)
         ustate, ubatch, cw = phase_unet_train_step(synthetic, class_weights, card)
         phase_unet_train_cpu_parity(ustate, ubatch, cw)
+        del ustate, ubatch, cw
+        spatial_counts = phase_train_spatial(tmp, synthetic, card)
+        phase_spatial_parity(tmp, synthetic, class_weights, card)
 
     # launches on the main paths: generation (fused and host), VAE
-    # training, the two dataset builds, U-Net training
+    # training, the two dataset builds, U-Net training, and both trainers
+    # at --spatial
     gen_counts = [{"bias": r["by_epilogue"]["bias"],
                    "folded": sum(r["by_epilogue"][e] for e in FOLDED),
                    "dx": 0, "dw": 0, "vox": 0} for r in runs.values()]
-    paths = gen_counts + [train_counts, vox_counts, unet_counts]
+    paths = gen_counts + [train_counts, vox_counts, unet_counts, spatial_counts]
     count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
-                 "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox"}
+                 "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox",
+                 "conv3d_same[valid]": "fwd_valid",
+                 "conv3d_same[dx_valid]": "dx_valid", "conv3d_dw[valid]": "dw_valid"}
     kernels = []
     for entry, source, replaces, covers in KERNEL_ENTRIES:
         mine = [r for r in rows if covers(r)]

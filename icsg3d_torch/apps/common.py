@@ -14,13 +14,14 @@ from __future__ import annotations
 import json
 import os
 import sys
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from icsg3d_torch.config import UNetConfig, VAEConfig
 from icsg3d_torch.models import ConditionalDFCVAE, UNet3D
+from icsg3d_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
 from icsg3d_torch.weights import load_flax_variables, load_npz, model_variables
 
 EXPORT_SCRIPT = "tools/export_flax_npz.py"
@@ -81,7 +82,11 @@ def add_device_flag(parser) -> None:
     parser.add_argument(
         "--device", default="cuda",
         help="torch device; 'cuda' raises when CUDA is unavailable, "
-             "'cpu' runs the plain PyTorch versions of the kernels in float32",
+             "'cpu' runs the plain PyTorch versions of the kernels in float32. "
+             "The trainers take a comma-separated list: the first is the lead "
+             "device (the model and every unsharded op), the list the "
+             "--spatial mesh's devices ('cuda' alone: every visible card); "
+             "repeat one to put several mesh cells on it (cuda:0,cuda:0)",
     )
 
 
@@ -94,6 +99,43 @@ def resolve_device(name: str) -> torch.device:
             "to run the plain PyTorch path on the CPU"
         )
     return dev
+
+
+def resolve_devices(spec: str) -> Tuple[torch.device, Optional[List[torch.device]]]:
+    """A trainer's ``--device`` list: (the lead device, the mesh's devices).
+    The devices are None for a plain ``cuda``, which means every visible
+    card (``make_mesh``'s default)."""
+    names = [n.strip() for n in spec.split(",") if n.strip()]
+    if not names:
+        raise ValueError(f"--device names no device: {spec!r}")
+    devices = [resolve_device(n) for n in names]
+    return devices[0], None if names == ["cuda"] else devices
+
+
+def spatial_mesh(args, parser) -> Tuple[torch.device, Optional[Mesh]]:
+    """The lead device and the conv mesh of a trainer's ``--device`` and
+    ``--spatial`` (icsg3d_tpu/apps/train_vae.py:129-138): a (data, spatial)
+    mesh for ``--spatial`` > 1, whose data axis must divide
+    ``--batch-size``; None for ``--spatial 1``, where the model runs on the
+    lead device alone."""
+    lead, devices = resolve_devices(args.device)
+    if args.spatial <= 1:
+        return lead, None
+    try:
+        mesh = make_mesh(n_spatial=args.spatial, devices=devices)
+    except ValueError as e:
+        raise ValueError(
+            f"--spatial {args.spatial} with --device {args.device}: {e}; repeat a "
+            "device to put several mesh cells on it, e.g. --device cuda:0,cuda:0 "
+            "(or cpu,cpu)"
+        ) from e
+    n_data = mesh.shape[DATA_AXIS]
+    if args.batch_size % n_data:
+        parser.error(
+            f"--batch-size {args.batch_size} must be divisible by the "
+            f"data mesh axis ({n_data} devices)"
+        )
+    return lead, mesh
 
 
 def compute_dtype(device: torch.device) -> str:

@@ -14,7 +14,11 @@ float32.
 - ``--layout`` is accepted and changes nothing (the port has one layout);
   ``--plot-every`` is accepted and no plots are written (``history.json``
   is).  ``--epoch-scan`` runs the resident per-step loop.
-- ``--spatial`` > 1 raises: depth sharding is not ported yet.
+- ``--spatial S`` > 1 shards every 3x3x3 conv in depth over a (data, S)
+  mesh of the ``--device`` list (the JAX CLI's ``--layout ndcs --spatial
+  S``): ``--device cuda`` is every visible card, ``--device
+  cuda:0,cuda:0`` a 1x2 mesh on one card, ``--device cpu,cpu`` one on the
+  CPU.  The model, BatchNorm and the losses stay on the first device.
 """
 
 from __future__ import annotations
@@ -51,7 +55,9 @@ def main(argv=None):
                    help="accepted for flag parity with icsg3d_tpu; the port "
                         "has one layout (NDHWC) and ignores it")
     p.add_argument("--spatial", type=int, default=1,
-                   help="spatial mesh axis size; > 1 is not ported yet")
+                   help="spatial mesh axis size: shards grid depth over this "
+                        "many mesh cells of the --device list (halo-exchanged "
+                        "depth-VALID conv kernels)")
     p.add_argument("--no-class-weights", action="store_true")
     p.add_argument("--ship-dtype", default="float16",
                    choices=("float32", "float16"),
@@ -73,11 +79,7 @@ def main(argv=None):
     p.add_argument("--ckpt", default="checkpoints/unet")
     common.add_device_flag(p)
     args = p.parse_args(argv)
-    if args.spatial > 1:
-        raise NotImplementedError(
-            "--spatial > 1: depth sharding (torch.distributed and the "
-            "depth-VALID conv kernel) is not ported yet"
-        )
+    device, mesh = common.spatial_mesh(args, p)
     if args.epoch_scan and not args.resident:
         p.error("--epoch-scan requires --resident")
     # non-rotated datasets rebuild the coordinate channels on the device;
@@ -87,7 +89,6 @@ def main(argv=None):
         p.error("--resident requires --nrot 0: rotated samples carry "
                 "axis-permuted coordinate channels that cannot rebuild "
                 "on the device")
-    device = common.resolve_device(args.device)
 
     ds = GridDataset(args.data)
     args.d = common.resolve_grid_d(args.d, ds)
@@ -96,7 +97,7 @@ def main(argv=None):
     )
     cfg = UNetConfig(num_classes=args.num_classes, layout=args.layout,
                      dtype=common.compute_dtype(device))
-    state = create_unet_state(cfg, args.lr, args.seed, device)
+    state = create_unet_state(cfg, args.lr, args.seed, device, spatial_mesh=mesh)
     model = state.model
     resuming = bool(args.resume and common.weights_path(args.ckpt, "latest"))
     if resuming:

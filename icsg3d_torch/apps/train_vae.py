@@ -12,7 +12,11 @@ parameters; on the CPU in float32.
 - ``--layout`` is accepted and changes nothing (the port has one layout);
   ``--plot-every`` is accepted and no plots are written (``history.json``
   is).  ``--epoch-scan`` runs the resident per-step loop.
-- ``--spatial`` > 1 raises: depth sharding is not ported yet.
+- ``--spatial S`` > 1 shards every 3x3x3 conv in depth over a (data, S)
+  mesh of the ``--device`` list (the JAX CLI's ``--layout ndcs --spatial
+  S``): ``--device cuda`` is every visible card, ``--device
+  cuda:0,cuda:0`` a 1x2 mesh on one card, ``--device cpu,cpu`` one on the
+  CPU.  The model, BatchNorm and the losses stay on the first device.
 """
 
 from __future__ import annotations
@@ -71,7 +75,9 @@ def main(argv=None):
                    help="accepted for flag parity with icsg3d_tpu; the port "
                         "has one layout (NDHWC) and ignores it")
     p.add_argument("--spatial", type=int, default=1,
-                   help="spatial mesh axis size; > 1 is not ported yet")
+                   help="spatial mesh axis size: shards grid depth over this "
+                        "many mesh cells of the --device list (halo-exchanged "
+                        "depth-VALID conv kernels)")
     p.add_argument("--remat-perceptual", action="store_true",
                    help="recompute the recon-side frozen perceptual forward "
                         "in the backward pass (torch.utils.checkpoint)")
@@ -102,12 +108,7 @@ def main(argv=None):
                    help="print per-stage startup timings")
     common.add_device_flag(p)
     args = p.parse_args(argv)
-    if args.spatial > 1:
-        raise NotImplementedError(
-            "--spatial > 1: depth sharding (torch.distributed and the "
-            "depth-VALID conv kernel) is not ported yet"
-        )
-    device = common.resolve_device(args.device)
+    device, mesh = common.spatial_mesh(args, p)
 
     t_start = time.time()
 
@@ -128,7 +129,7 @@ def main(argv=None):
         cond_bins=args.cond_bins, filters=common.parse_filters(args.filters),
         layout=args.layout, cond_repeat=args.cond_repeat, dtype=dtype,
     )
-    state = create_vae_state(cfg, args.lr, args.seed, device)
+    state = create_vae_state(cfg, args.lr, args.seed, device, spatial_mesh=mesh)
     model = state.model
     mark("vae init")
     # an Orbax `latest` directory raises with the export hint

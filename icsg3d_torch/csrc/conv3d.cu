@@ -1,17 +1,30 @@
-// 3x3x3 stride-1 SAME convolution on NDHWC activations, with a fused
-// per-channel epilogue, for NVIDIA Hopper (sm_90a).
+// 3x3x3 stride-1 convolution on NDHWC activations, SAME in H and W and
+// SAME, VALID or "full" in depth, with a fused per-channel epilogue, for
+// NVIDIA Hopper (sm_90a).
 //
 // Replaces two Pallas TPU kernels of icsg3d_tpu:
-//   K1 forward  icsg3d_tpu/ops/lowc_conv.py::_kernel       (conv + bias)
+//   K1 forward  icsg3d_tpu/ops/lowc_conv.py::_kernel       (conv + bias),
+//               with its depth_valid mode (lowc_conv.py:224-231)
 //   K3          icsg3d_tpu/ops/pallas_conv.py::_conv_kernel (conv + folded
 //               inference BN + activation)
 // The TPU forms (spatial-major layout, 128-lane aprons, tap packing, VMEM
 // depth blocks) are not carried over; this is an implicit GEMM:
 //   M = B*D*H*W output voxels, N = Cout, K = 27*Cin,
 //   out[m, co] = epi( sum_{tap, ci} x[shift(m, tap), ci] * wt[tap, co, ci] )
-// with SAME zero padding done by predicated (zero-filling) loads at all six
-// faces and f32 accumulation.  Weights arrive K-contiguous per output
-// channel, wt = (27, Cout, Cin), so both operands load as 16-byte rows.
+// with zero padding done by predicated (zero-filling) loads and f32
+// accumulation.  Weights arrive K-contiguous per output channel, wt = (27,
+// Cout, Cin), so both operands load as 16-byte rows.
+//
+// Depth window: output plane d reads input planes d + off + kd (kd in
+// -1..1) of an input with D_in planes, zero outside [0, D_in):
+//   SAME   D_in = D_out,     off =  0
+//   VALID  D_in = D_out + 2, off = +1  (a halo-padded depth slab: the
+//          per-shard conv of a depth-sharded SAME conv; the predicate
+//          never fires in depth)
+//   full   D_in = D_out - 2, off = -1  (the input gradient of a VALID conv:
+//          every input plane, halos included, from the unpadded
+//          cotangent, without the 2-plane zero pad lowc_conv.py:609-623
+//          materialises)
 //
 // What bounds it on this card: at the U-Net's widths (Cin 64..768) the conv
 // does 27*Cout multiply-adds per input element it reads, far above the
@@ -71,27 +84,34 @@ __device__ __forceinline__ float epilogue(float acc, int co, const float* bias,
   }
 }
 
-// Per-block voxel coordinates of the BM output rows (-1 past M).
+// Rows past M get this input plane, which every tap reads as outside.
+constexpr short kPastM = -32000;
+
+// Per-block coordinates of the BM output rows: the input voxel each reads at
+// tap (0,0,0), and its input plane d + off (kPastM past M) and (h, w).
 struct RowInfo {
   int vox[BM];
   short d[BM], h[BM], w[BM];
 
-  __device__ void fill(int m0, int M, int D, int H, int W) {
+  __device__ void fill(int m0, int M, int D_out, int D_in, int off, int H, int W) {
     for (int r = threadIdx.x; r < BM; r += NT) {
       const int m = m0 + r;
-      vox[r] = m < M ? m : -1;
-      w[r] = m % W;
-      h[r] = (m / W) % H;
-      d[r] = (m / (W * H)) % D;
+      const int q = m / W, ww = m - q * W;
+      const int p = q / H, hh = q - p * H;
+      const int b = p / D_out, d0 = p - b * D_out + off;
+      vox[r] = ((b * D_in + d0) * H + hh) * W + ww;
+      d[r] = m < M ? (short)d0 : kPastM;
+      h[r] = (short)hh;
+      w[r] = (short)ww;
     }
   }
-  // The voxel row r reads at tap offset (kd, kh, kw), or -1 outside the grid.
+  // The input voxel row r reads at tap offset (kd, kh, kw), or -1 outside
+  // the input (or past M).
   __device__ __forceinline__ int src(int r, int kd, int kh, int kw, int delta,
-                                     int D, int H, int W) const {
-    const int v = vox[r];
+                                     int D_in, int H, int W) const {
     const int dd = d[r] + kd, hh = h[r] + kh, ww = w[r] + kw;
-    const bool in = v >= 0 && dd >= 0 && dd < D && hh >= 0 && hh < H && ww >= 0 && ww < W;
-    return in ? v + delta : -1;
+    const bool in = dd >= 0 && dd < D_in && hh >= 0 && hh < H && ww >= 0 && ww < W;
+    return in ? vox[r] + delta : -1;
   }
 };
 
@@ -136,16 +156,17 @@ __global__ void __launch_bounds__(NT)
 conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wt,
                   const float* __restrict__ bias, const float* __restrict__ scale,
                   const float* __restrict__ shift, TOut* __restrict__ out,
-                  int B, int D, int H, int W, int Cin, int Cout, int epi, float slope) {
+                  int B, int D_in, int D_out, int off, int H, int W, int Cin, int Cout,
+                  int epi, float slope) {
   __shared__ __align__(16) __nv_bfloat16 sA[STAGES][BM][LDS];  // [voxel][k]
   __shared__ __align__(16) __nv_bfloat16 sB[STAGES][BN][LDS];  // [cout][k]
   __shared__ RowInfo rows;
 
-  const int M = B * D * H * W;
+  const int M = B * D_out * H * W;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
-  rows.fill(m0, M, D, H, W);
+  rows.fill(m0, M, D_out, D_in, off, H, W);
   __syncthreads();
 
   // kVec: K steps are (tap, BK-channel chunk) pairs.  Scalar: K = 27*Cin
@@ -163,7 +184,7 @@ conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
       for (int i = 0; i < BM * BK / 8 / NT; ++i) {  // 2 A rows of 8 per thread
         const int c = tid + i * NT;
         const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        const int s = c0 + kc < Cin ? rows.src(r, kd, kh, kw, delta, D, H, W) : -1;
+        const int s = c0 + kc < Cin ? rows.src(r, kd, kh, kw, delta, D_in, H, W) : -1;
         const __nv_bfloat16* p = s >= 0 ? x + (long long)s * Cin + c0 + kc : x;
         cp_async16(&sA[buf][r][kc], p, s >= 0 ? 16 : 0);
       }
@@ -184,7 +205,7 @@ conv3d_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 #pragma unroll 4
       for (int i = 0; i < BM * BK / NT; ++i) {
         const int r = (tid + i * NT) / BK;
-        const int s = kok ? rows.src(r, kd, kh, kw, delta, D, H, W) : -1;
+        const int s = kok ? rows.src(r, kd, kh, kw, delta, D_in, H, W) : -1;
         sA[buf][r][k] = s >= 0 ? x[(long long)s * Cin + ci] : zero;
       }
 #pragma unroll 4
@@ -268,18 +289,19 @@ __global__ void __launch_bounds__(NT)
 conv3d_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
                   const float* __restrict__ bias, const float* __restrict__ scale,
                   const float* __restrict__ shift, TOut* __restrict__ out,
-                  int B, int D, int H, int W, int Cin, int Cout, int epi, float slope) {
+                  int B, int D_in, int D_out, int off, int H, int W, int Cin, int Cout,
+                  int epi, float slope) {
   constexpr int FBN = 16 * TN;
   __shared__ float sA[BM][BK + 1];   // [voxel][k]
   __shared__ float sB[FBN][BK + 1];  // [cout][k]
   __shared__ RowInfo rows;
 
-  const int M = B * D * H * W;
+  const int M = B * D_out * H * W;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * FBN;
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  rows.fill(m0, M, D, H, W);
+  rows.fill(m0, M, D_out, D_in, off, H, W);
   __syncthreads();
 
   float acc[8][TN];
@@ -299,7 +321,7 @@ conv3d_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll 4
     for (int i = 0; i < BM * BK / NT; ++i) {
       const int r = (tid + i * NT) / BK;
-      const int s = kok ? rows.src(r, kd, kh, kw, delta, D, H, W) : -1;
+      const int s = kok ? rows.src(r, kd, kh, kw, delta, D_in, H, W) : -1;
       sA[r][k] = s >= 0 ? x[(long long)s * Cin + ci] : 0.f;
     }
     for (int n = tid / BK; n < FBN; n += NT / BK) {
@@ -334,11 +356,16 @@ conv3d_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     }
 }
 
+// The depth geometry of one launch (see the note at the top).
+struct Depth {
+  int d_in, d_out, off;
+};
+
 template <typename TOut>
 void launch_mma(const void* x, const void* wt, const float* bias, const float* scale,
-                const float* shift, void* out, int B, int D, int H, int W, int Cin,
+                const float* shift, void* out, int B, Depth dp, int H, int W, int Cin,
                 int Cout, int epi, float slope, cudaStream_t stream) {
-  const long long M = (long long)B * D * H * W;
+  const long long M = (long long)B * dp.d_out * H * W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
   const bool vec = Cin % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(wt) % 16 == 0;
@@ -346,58 +373,68 @@ void launch_mma(const void* x, const void* wt, const float* bias, const float* s
   auto wb = static_cast<const __nv_bfloat16*>(wt);
   auto o = static_cast<TOut*>(out);
   if (vec)
-    conv3d_mma_kernel<TOut, true><<<grid, NT, 0, stream>>>(xb, wb, bias, scale, shift, o, B,
-                                                           D, H, W, Cin, Cout, epi, slope);
+    conv3d_mma_kernel<TOut, true><<<grid, NT, 0, stream>>>(
+        xb, wb, bias, scale, shift, o, B, dp.d_in, dp.d_out, dp.off, H, W, Cin, Cout, epi,
+        slope);
   else
-    conv3d_mma_kernel<TOut, false><<<grid, NT, 0, stream>>>(xb, wb, bias, scale, shift, o, B,
-                                                            D, H, W, Cin, Cout, epi, slope);
+    conv3d_mma_kernel<TOut, false><<<grid, NT, 0, stream>>>(
+        xb, wb, bias, scale, shift, o, B, dp.d_in, dp.d_out, dp.off, H, W, Cin, Cout, epi,
+        slope);
 }
 
 template <typename TOut>
 void launch_fma(const void* x, const void* wt, const float* bias, const float* scale,
-                const float* shift, void* out, int B, int D, int H, int W, int Cin,
+                const float* shift, void* out, int B, Depth dp, int H, int W, int Cin,
                 int Cout, int epi, float slope, cudaStream_t stream) {
-  const long long M = (long long)B * D * H * W;
+  const long long M = (long long)B * dp.d_out * H * W;
   const unsigned mt = (unsigned)((M + BM - 1) / BM);
   auto xf = static_cast<const float*>(x);
   auto wf = static_cast<const float*>(wt);
   auto o = static_cast<TOut*>(out);
   if (Cout <= 16)
     conv3d_fma_kernel<TOut, 1><<<dim3(mt, (Cout + 15) / 16), NT, 0, stream>>>(
-        xf, wf, bias, scale, shift, o, B, D, H, W, Cin, Cout, epi, slope);
+        xf, wf, bias, scale, shift, o, B, dp.d_in, dp.d_out, dp.off, H, W, Cin, Cout, epi,
+        slope);
   else
     conv3d_fma_kernel<TOut, 4><<<dim3(mt, (Cout + 63) / 64), NT, 0, stream>>>(
-        xf, wf, bias, scale, shift, o, B, D, H, W, Cin, Cout, epi, slope);
+        xf, wf, bias, scale, shift, o, B, dp.d_in, dp.d_out, dp.off, H, W, Cin, Cout, epi,
+        slope);
 }
 
 }  // namespace
 
-// x: (B, D, H, W, Cin); wt: (27, Cout, Cin) in x's dtype; bias, scale,
-// shift: (Cout,) f32; out: (B, D, H, W, Cout).  dtype codes: 0 = float32,
-// 1 = bfloat16.  epi: see Epilogue; scale and shift may be null for
-// epi == 0.  Returns cudaGetLastError() after the launch (0 = launched).
-// Allocates nothing and does not synchronise.
-extern "C" int conv3d_same(const void* x, const void* wt, const void* bias,
-                           const void* scale, const void* shift, void* out,
-                           int B, int D, int H, int W, int Cin, int Cout,
-                           int in_dtype, int out_dtype, int epi, float slope,
-                           void* stream) {
-  const long long M = (long long)B * D * H * W;
-  if (M <= 0 || M >= (1LL << 31) || Cin <= 0 || Cout <= 0 || epi < 0 ||
-      epi > 3 || ((epi != 0) && (!scale || !shift)))
+// x: (B, D_in, H, W, Cin); wt: (27, Cout, Cin) in x's dtype; bias, scale,
+// shift: (Cout,) f32; out: (B, D_out, H, W, Cout).  off is the depth
+// offset of the window: 0 (SAME, D_in = D_out), +1 (VALID, D_in = D_out +
+// 2) or -1 (full, D_in = D_out - 2).  dtype codes: 0 = float32, 1 =
+// bfloat16.  epi: see Epilogue; scale and shift may be null for epi == 0.
+// Returns cudaGetLastError() after the launch (0 = launched).  Allocates
+// nothing and does not synchronise.
+extern "C" int conv3d(const void* x, const void* wt, const void* bias, const void* scale,
+                      const void* shift, void* out, int B, int D_in, int D_out, int off,
+                      int H, int W, int Cin, int Cout, int in_dtype, int out_dtype, int epi,
+                      float slope, void* stream) {
+  const long long M_out = (long long)B * D_out * H * W;
+  // the row decode runs up to BM rows and one plane past the larger grid
+  const long long M_in = (long long)B * (D_in + 2) * H * W + BM;
+  if (B <= 0 || D_out <= 0 || D_in <= 0 || H <= 0 || W <= 0 || off < -1 || off > 1 ||
+      D_in != D_out + 2 * off || D_in > 16000 || D_out > 16000 || H > 16000 ||
+      W > 16000 || M_out >= (1LL << 31) || M_in >= (1LL << 31) || Cin <= 0 ||
+      Cout <= 0 || epi < 0 || epi > 3 || ((epi != 0) && (!scale || !shift)))
     return (int)cudaErrorInvalidValue;
   const float* b = static_cast<const float*>(bias);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Depth dp{D_in, D_out, off};
   if (in_dtype == 1 && out_dtype == 1)
-    launch_mma<__nv_bfloat16>(x, wt, b, sc, sh, out, B, D, H, W, Cin, Cout, epi, slope, s);
+    launch_mma<__nv_bfloat16>(x, wt, b, sc, sh, out, B, dp, H, W, Cin, Cout, epi, slope, s);
   else if (in_dtype == 1 && out_dtype == 0)
-    launch_mma<float>(x, wt, b, sc, sh, out, B, D, H, W, Cin, Cout, epi, slope, s);
+    launch_mma<float>(x, wt, b, sc, sh, out, B, dp, H, W, Cin, Cout, epi, slope, s);
   else if (in_dtype == 0 && out_dtype == 0)
-    launch_fma<float>(x, wt, b, sc, sh, out, B, D, H, W, Cin, Cout, epi, slope, s);
+    launch_fma<float>(x, wt, b, sc, sh, out, B, dp, H, W, Cin, Cout, epi, slope, s);
   else if (in_dtype == 0 && out_dtype == 1)
-    launch_fma<__nv_bfloat16>(x, wt, b, sc, sh, out, B, D, H, W, Cin, Cout, epi, slope, s);
+    launch_fma<__nv_bfloat16>(x, wt, b, sc, sh, out, B, dp, H, W, Cin, Cout, epi, slope, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -1,14 +1,19 @@
-// Weight gradient of the 3x3x3 stride-1 SAME convolution on NDHWC
-// activations, for NVIDIA Hopper (sm_90a).
+// Weight gradient of the 3x3x3 stride-1 convolution on NDHWC activations,
+// SAME in H and W and SAME or VALID in depth, for NVIDIA Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel K2 of icsg3d_tpu:
-//   icsg3d_tpu/ops/lowc_conv.py::_dw_kernel (launched by conv3d_lowc_ndcs_dw)
+//   icsg3d_tpu/ops/lowc_conv.py::_dw_kernel (launched by conv3d_lowc_ndcs_dw),
+//   with its depth_valid mode (lowc_conv.py:380-387)
 // Its TPU forms (the roll-based 9-tap scatter of g, the 128-lane aprons, the
 // sublane channel padding, and the f32 output block kept resident across a
 // sequential grid) are not carried over.  Read as a GEMM:
 //   dW[tap, ci, co] = sum_v x[shift(v, tap), ci] * g[v, co]
-//   M = 27*Cin rows (tap, ci), N = Cout, K = B*D*H*W voxels,
-// with x zero outside the grid (SAME padding by predicated zero-fill loads).
+//   M = 27*Cin rows (tap, ci), N = Cout, K = B*D*H*W voxels of g,
+// with x zero outside the grid (padding by predicated zero-fill loads).
+// In depth, g's plane d reads x's plane d + off + kd: off = 0 for SAME (x
+// has g's D planes), off = 1 for VALID (x is a halo-padded slab of D + 2
+// planes, the per-shard dW of a depth-sharded conv).  The split-K voxel
+// ranges always index g's voxels.
 // dW comes out f32 in the DHWIO layout (3, 3, 3, Cin, Cout) = (M, N).
 //
 // What bounds it on this card: K is long (655,360 voxels at the 32^3 convs
@@ -77,16 +82,20 @@ __device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// Voxel v of the (B, D, H, W) grid read at the offset of tap (0..26), or -1
-// outside the grid (or past the block's voxel range, v >= vend).
+// The x voxel that voxel v of g's (B, D, H, W) grid reads at tap (0..26),
+// with x's planes offset by ``off`` (x has D + 2*off planes), or -1 outside
+// x (or past the block's voxel range, v >= vend).
 __device__ __forceinline__ long long shifted(long long v, long long vend, int tap,
-                                             int D, int H, int W) {
+                                             int D, int H, int W, int off) {
   if (v >= vend) return -1;
   const int kd = tap / 9 - 1, kh = (tap / 3) % 3 - 1, kw = tap % 3 - 1;
-  const int w = (int)(v % W), h = (int)((v / W) % H), d = (int)((v / ((long long)W * H)) % D);
-  const int dd = d + kd, hh = h + kh, ww = w + kw;
-  if (dd < 0 || dd >= D || hh < 0 || hh >= H || ww < 0 || ww >= W) return -1;
-  return v + ((long long)kd * H + kh) * W + kw;
+  const long long hw = (long long)W * H, q = v / hw;
+  const long long b = q / D;
+  const int w = (int)(v % W), h = (int)((v / W) % H), d = (int)(q - b * D);
+  const int dd = d + off + kd, hh = h + kh, ww = w + kw;
+  if (dd < 0 || dd >= D + 2 * off || hh < 0 || hh >= H || ww < 0 || ww >= W) return -1;
+  // x's index: ((b*(D + 2*off) + dd)*H + hh)*W + ww
+  return v + ((long long)kd * H + kh) * W + kw + off * (2 * b + 1) * hw;
 }
 
 // ---------------------------------------------------------------------------
@@ -98,7 +107,7 @@ template <bool kVec>
 __global__ void __launch_bounds__(NT)
 conv3d_dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
                      float* __restrict__ ws, int B, int D, int H, int W, int Cin, int Cout,
-                     long long chunk) {
+                     int off, long long chunk) {
   __shared__ __align__(16) __nv_bfloat16 sA[STAGES][BK][LDA];  // [voxel][(tap, ci)]
   __shared__ __align__(16) __nv_bfloat16 sB[STAGES][BK][LDB];  // [voxel][co]
 
@@ -125,7 +134,7 @@ conv3d_dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
         if (row < M) {
           const int tap = row / Cin;
           ci = row - tap * Cin;
-          s = shifted(kb + k, vend, tap, D, H, W);
+          s = shifted(kb + k, vend, tap, D, H, W, off);
         }
         const __nv_bfloat16* p = s >= 0 ? x + s * Cin + ci : x;
         cp_async16(&sA[buf][k][mc], p, s >= 0 ? 16 : 0);
@@ -143,7 +152,7 @@ conv3d_dw_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
       const int tap = row < M ? row / Cin : 0, ci = row - tap * Cin;
 #pragma unroll 4
       for (int k = tid / BM; k < BK; k += NT / BM) {
-        const long long s = row < M ? shifted(kb + k, vend, tap, D, H, W) : -1;
+        const long long s = row < M ? shifted(kb + k, vend, tap, D, H, W, off) : -1;
         sA[buf][k][mcol] = s >= 0 ? x[s * Cin + ci] : zero;
       }
       const int ncol = tid % BN, co = n0 + ncol;
@@ -230,7 +239,7 @@ template <int TX>
 __global__ void __launch_bounds__(NT)
 conv3d_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      float* __restrict__ ws, int B, int D, int H, int W, int Cin, int Cout,
-                     long long chunk) {
+                     int off, long long chunk) {
   constexpr int TY = NT / TX, FBM = 4 * TY;
   __shared__ float sA[BK][FBM];
   __shared__ float sB[BK][TX];
@@ -249,7 +258,7 @@ conv3d_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (long long kb = vbeg; kb < vend; kb += BK) {
     for (int k = tid / FBM; k < BK; k += NT / FBM) {
-      const long long s = row < M ? shifted(kb + k, vend, tap, D, H, W) : -1;
+      const long long s = row < M ? shifted(kb + k, vend, tap, D, H, W, off) : -1;
       sA[k][mcol] = s >= 0 ? x[s * Cin + ci] : 0.f;
     }
     for (int k = tid / TX; k < BK; k += NT / TX) {
@@ -295,19 +304,19 @@ long long chunk_voxels(long long K, int splits) {
 
 }  // namespace
 
-// x: (B, D, H, W, Cin); g: (B, D, H, W, Cout), both in one dtype (0 = f32,
-// 1 = bf16); ws: f32 workspace of splits * 27*Cin * Cout; dw: f32
-// (27*Cin, Cout) = (3, 3, 3, Cin, Cout).  Every voxel range of
-// chunk_voxels(K, splits) voxels writes its slice of ws (zeros past K),
-// then one reduction sums the slices into dw.  Returns cudaGetLastError()
-// after the two launches (0 = launched).  Allocates nothing and does not
-// synchronise.
+// x: (B, D + 2*off, H, W, Cin); g: (B, D, H, W, Cout), both in one dtype
+// (0 = f32, 1 = bf16); off: 0 (SAME) or 1 (VALID); ws: f32 workspace of
+// splits * 27*Cin * Cout; dw: f32 (27*Cin, Cout) = (3, 3, 3, Cin, Cout).
+// Every range of chunk_voxels(K, splits) of g's K = B*D*H*W voxels writes
+// its slice of ws (zeros past K), then one reduction sums the slices into
+// dw.  Returns cudaGetLastError() after the two launches (0 = launched).
+// Allocates nothing and does not synchronise.
 extern "C" int conv3d_dw(const void* x, const void* g, void* ws, void* dw, int B, int D,
-                         int H, int W, int Cin, int Cout, int dtype, int splits,
+                         int H, int W, int Cin, int Cout, int dtype, int splits, int off,
                          void* stream) {
   const long long K = (long long)B * D * H * W;
-  if (K <= 0 || K >= (1LL << 40) || Cin <= 0 || Cout <= 0 || splits <= 0 ||
-      (dtype != 0 && dtype != 1))
+  if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || K >= (1LL << 40) || Cin <= 0 ||
+      Cout <= 0 || splits <= 0 || (dtype != 0 && dtype != 1) || (off != 0 && off != 1))
     return (int)cudaErrorInvalidValue;
   const long long chunk = chunk_voxels(K, splits);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -321,18 +330,22 @@ extern "C" int conv3d_dw(const void* x, const void* g, void* ws, void* dw, int B
     auto xb = static_cast<const __nv_bfloat16*>(x);
     auto gb = static_cast<const __nv_bfloat16*>(g);
     if (vec)
-      conv3d_dw_mma_kernel<true><<<grid, NT, 0, s>>>(xb, gb, wsf, B, D, H, W, Cin, Cout, chunk);
+      conv3d_dw_mma_kernel<true><<<grid, NT, 0, s>>>(xb, gb, wsf, B, D, H, W, Cin, Cout, off,
+                                                      chunk);
     else
-      conv3d_dw_mma_kernel<false><<<grid, NT, 0, s>>>(xb, gb, wsf, B, D, H, W, Cin, Cout, chunk);
+      conv3d_dw_mma_kernel<false><<<grid, NT, 0, s>>>(xb, gb, wsf, B, D, H, W, Cin, Cout, off,
+                                                      chunk);
   } else {
     auto xf = static_cast<const float*>(x);
     auto gf = static_cast<const float*>(g);
     if (Cout <= 4) {
       dim3 grid((M + 4 * (NT / 4) - 1) / (4 * (NT / 4)), (Cout + 3) / 4, splits);
-      conv3d_dw_fma_kernel<4><<<grid, NT, 0, s>>>(xf, gf, wsf, B, D, H, W, Cin, Cout, chunk);
+      conv3d_dw_fma_kernel<4><<<grid, NT, 0, s>>>(xf, gf, wsf, B, D, H, W, Cin, Cout, off,
+                                                     chunk);
     } else {
       dim3 grid((M + 4 * (NT / 16) - 1) / (4 * (NT / 16)), (Cout + 15) / 16, splits);
-      conv3d_dw_fma_kernel<16><<<grid, NT, 0, s>>>(xf, gf, wsf, B, D, H, W, Cin, Cout, chunk);
+      conv3d_dw_fma_kernel<16><<<grid, NT, 0, s>>>(xf, gf, wsf, B, D, H, W, Cin, Cout, off,
+                                                     chunk);
     }
   }
   const cudaError_t err = cudaGetLastError();

@@ -1,5 +1,5 @@
-"""3x3x3 SAME conv with a fused epilogue: the Hopper kernel, its build and
-loader, and its plain PyTorch version.
+"""3x3x3 conv with a fused epilogue, SAME or depth-VALID: the Hopper kernel,
+its build and loader, and its plain PyTorch versions.
 
 Replaces two Pallas TPU kernels of the JAX package:
 
@@ -11,7 +11,7 @@ Replaces two Pallas TPU kernels of the JAX package:
 
 The kernel (``icsg3d_torch/csrc/conv3d.cu``) is an implicit GEMM on NDHWC
 data with M = B*D*H*W voxels, N = Cout, K = 27*Cin, f32 accumulation and
-SAME padding by zero-filling predicated loads.  bf16 input runs on
+zero padding by zero-filling predicated loads.  bf16 input runs on
 mma.sync tensor cores fed by a 3-stage cp.async ring; f32 input on a plain
 FMA kernel.  At the U-Net's widths the conv is bound by tensor-core
 throughput, which only wgmma reaches in full (see the note in the .cu
@@ -33,7 +33,21 @@ affine_relu    relu(scale*acc + shift)            K3; VAE output head (f32)
 The same kernel computes K1 run as dx, the input gradient of the conv
 (``icsg3d_tpu/ops/lowc_conv.py:549-567``): a SAME conv of the cotangent
 with spatially flipped, channel-swapped weights and zero bias
-(``conv3d_dx_cuda``).  It keeps its own launch counter, ``launches_dx``.
+(``conv3d_dx_cuda``).
+
+Depth modes (K1's ``depth_valid``, lowc_conv.py:224-231, 573-633), for the
+halo-padded slabs of a depth-sharded conv (parallel/halo.py):
+
+- VALID, ``conv3d_valid_cuda``: x has D + 2 planes, the output D; every
+  epilogue;
+- full, ``conv3d_dx_valid_cuda``: the input gradient of a VALID conv, all
+  D + 2 input planes (halos included) from the D-plane cotangent, without
+  materialising the cotangent zero-padded by 2 planes.
+
+Launch counters (each binding its own): ``launches`` and
+``launches_by_epilogue`` (SAME forwards), ``launches_dx`` (SAME dx),
+``launches_valid`` and ``launches_valid_by_epilogue`` (VALID forwards),
+``launches_dx_valid`` (full-window dx).
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``icsg3d_torch/_build/`` on first use (kernels/_nvcc.py), loaded with
@@ -58,20 +72,29 @@ SOURCE = PKG / "csrc" / "conv3d.cu"
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-# Incremented once per kernel launch, never by the plain version: forward
-# launches (in total and by epilogue) and input-gradient launches.
+# Incremented once per kernel launch, never by the plain version: SAME
+# forward launches (in total and by epilogue), SAME input-gradient launches,
+# and the same for the depth-VALID forward and its full-window dx.
 launches = 0
 launches_by_epilogue = {e: 0 for e in EPILOGUES}
 launches_dx = 0
+launches_valid = 0
+launches_valid_by_epilogue = {e: 0 for e in EPILOGUES}
+launches_dx_valid = 0
+
+# Depth offset of the window per mode (csrc/conv3d.cu): output plane d
+# reads input planes d + off - 1 .. d + off + 1.
+_DEPTH_OFF = {"same": 0, "valid": 1, "full": -1}
 
 _lib = None
 
 
 def reset_launches() -> None:
-    global launches, launches_dx
-    launches = launches_dx = 0
+    global launches, launches_dx, launches_valid, launches_dx_valid
+    launches = launches_dx = launches_valid = launches_dx_valid = 0
     for e in EPILOGUES:
         launches_by_epilogue[e] = 0
+        launches_valid_by_epilogue[e] = 0
 
 
 def build() -> Path:
@@ -84,10 +107,10 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.conv3d_same
+        fn = lib.conv3d
         fn.argtypes = (
             [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 8
             + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float]
             + [ctypes.c_void_p]
         )
@@ -129,26 +152,31 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor, name: str):
         raise ValueError("x and w must be contiguous")
 
 
-def _launch(x, wt, bias, scale, shift, epilogue, out_dtype, slope):
-    """One kernel launch: x (B,D,H,W,K) conv wt (27, N, K) -> (B,D,H,W,N)."""
+def _launch(x, wt, bias, scale, shift, epilogue, out_dtype, slope, mode="same"):
+    """One kernel launch: x (B,D,H,W,K) conv wt (27, N, K) -> (B,D_out,H,W,N)
+    with D_out = D (``mode`` "same"), D - 2 ("valid") or D + 2 ("full")."""
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
     B, D, H, W, k = x.shape
     n = wt.shape[1]
+    off = _DEPTH_OFF[mode]
+    d_out = D - 2 * off
+    if d_out < 1:
+        raise ValueError(f"a {mode} conv of {D} planes has no output plane")
     lib = load()
-    out = torch.empty((B, D, H, W, n), dtype=out_dtype, device=x.device)
+    out = torch.empty((B, d_out, H, W, n), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.conv3d_same(
+        err = lib.conv3d(
             x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
             scale.data_ptr() if scale is not None else None,
             shift.data_ptr() if shift is not None else None,
-            out.data_ptr(), B, D, H, W, k, n,
+            out.data_ptr(), B, D, d_out, off, H, W, k, n,
             _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
             EPILOGUES.index(epilogue), float(slope), stream,
         )
     if err != 0:
-        raise RuntimeError(f"conv3d_same kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"conv3d kernel launch failed ({mode}): CUDA error {err}")
     return out
 
 
@@ -170,9 +198,39 @@ def conv3d_same_cuda(
     x.dtype).  Raises on anything else; never falls back.
     """
     global launches
+    out = _forward(x, w, bias, scale, shift, epilogue, out_dtype, slope, "same",
+                   "conv3d_same_cuda")
+    launches += 1
+    launches_by_epilogue[epilogue] += 1
+    return out
+
+
+def conv3d_valid_cuda(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    shift: Optional[torch.Tensor] = None,
+    epilogue: str = "bias",
+    out_dtype: Optional[torch.dtype] = None,
+    slope: float = 0.3,
+) -> torch.Tensor:
+    """The depth-VALID conv on CUDA tensors: x (B, D + 2, H, W, Cin) is a
+    depth slab padded with its two halo planes, the result (B, D, H, W,
+    Cout) its slice of the global SAME conv.  Arguments and checks as in
+    ``conv3d_same_cuda``; every epilogue."""
+    global launches_valid
+    out = _forward(x, w, bias, scale, shift, epilogue, out_dtype, slope, "valid",
+                   "conv3d_valid_cuda")
+    launches_valid += 1
+    launches_valid_by_epilogue[epilogue] += 1
+    return out
+
+
+def _forward(x, w, bias, scale, shift, epilogue, out_dtype, slope, mode, name):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; choose from {EPILOGUES}")
-    _check_operands(x, w, "conv3d_same_cuda")
+    _check_operands(x, w, name)
     cin, cout = w.shape[3], w.shape[4]
     if x.shape[4] != cin:
         raise ValueError(f"w has Cin={cin}, x has {x.shape[4]}")
@@ -182,10 +240,8 @@ def conv3d_same_cuda(
         _check_channels(shift, cout, "shift", x)
     # the kernel reads weights K-contiguous per output channel: (27, Cout, Cin)
     wt = w.reshape(27, cin, cout).transpose(1, 2).contiguous()
-    out = _launch(x, wt, bias, scale, shift, epilogue, out_dtype or x.dtype, slope)
-    launches += 1
-    launches_by_epilogue[epilogue] += 1
-    return out
+    return _launch(x, wt, bias, scale, shift, epilogue, out_dtype or x.dtype, slope,
+                   mode)
 
 
 def conv3d_dx_cuda(
@@ -201,15 +257,33 @@ def conv3d_dx_cuda(
     (27, Cin, Cout) rows in reverse tap order, so no transpose is needed.
     """
     global launches_dx
-    _check_operands(g, w, "conv3d_dx_cuda")
+    out = _dx(g, w, out_dtype, "same", "conv3d_dx_cuda")
+    launches_dx += 1
+    return out
+
+
+def conv3d_dx_valid_cuda(
+    g: torch.Tensor, w: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """The input gradient of the depth-VALID conv with weights w: g (B, D,
+    H, W, Cout) -> dx (B, D + 2, H, W, Cin), every input plane of the
+    halo-padded slab.  The kernel's full depth window (offset -1) on the
+    flipped weights does what lowc_conv.py:609-623 does on a cotangent
+    zero-padded by 2 planes, without writing that pad."""
+    global launches_dx_valid
+    out = _dx(g, w, out_dtype, "full", "conv3d_dx_valid_cuda")
+    launches_dx_valid += 1
+    return out
+
+
+def _dx(g, w, out_dtype, mode, name):
+    _check_operands(g, w, name)
     cin, cout = w.shape[3], w.shape[4]
     if g.shape[4] != cout:
         raise ValueError(f"w has Cout={cout}, g has {g.shape[4]}")
     wt = w.reshape(27, cin, cout).flip(0).contiguous()
     zero = torch.zeros(cin, dtype=torch.float32, device=g.device)
-    out = _launch(g, wt, zero, None, None, "bias", out_dtype or g.dtype, 0.0)
-    launches_dx += 1
-    return out
+    return _launch(g, wt, zero, None, None, "bias", out_dtype or g.dtype, 0.0, mode)
 
 
 def apply_epilogue(y, epilogue, scale=None, shift=None, slope: float = 0.3):
@@ -245,6 +319,26 @@ def conv3d_same_reference(
     ``torch.backends.cuda.matmul.allow_tf32 = False``): TF32 keeps about
     three decimal digits, too few to check an f32 output against.
     """
+    return _reference(x, w, bias, scale, shift, epilogue, out_dtype, slope, 1)
+
+
+def conv3d_valid_reference(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    bias: torch.Tensor,
+    scale: Optional[torch.Tensor] = None,
+    shift: Optional[torch.Tensor] = None,
+    epilogue: str = "bias",
+    out_dtype: Optional[torch.dtype] = None,
+    slope: float = 0.3,
+) -> torch.Tensor:
+    """The plain version of ``conv3d_valid_cuda``: as
+    ``conv3d_same_reference`` with F.conv3d's ``padding=(0, 1, 1)``, so x
+    (B, D + 2, H, W, Cin) gives (B, D, H, W, Cout)."""
+    return _reference(x, w, bias, scale, shift, epilogue, out_dtype, slope, 0)
+
+
+def _reference(x, w, bias, scale, shift, epilogue, out_dtype, slope, depth_pad):
     if epilogue not in EPILOGUES:
         raise ValueError(f"unknown epilogue {epilogue!r}; choose from {EPILOGUES}")
     if x.is_cuda:
@@ -253,7 +347,7 @@ def conv3d_same_reference(
     out_dtype = out_dtype or x.dtype
     xf = x.float().permute(0, 4, 1, 2, 3)
     wf = w.to(x.dtype).float().permute(4, 3, 0, 1, 2)  # DHWIO -> OIDHW
-    y = F.conv3d(xf, wf, padding=1).permute(0, 2, 3, 4, 1)
+    y = F.conv3d(xf, wf, padding=(depth_pad, 1, 1)).permute(0, 2, 3, 4, 1)
     y = y + bias.float()
     if epilogue != "bias":
         scale, shift = scale.float(), shift.float()
@@ -274,3 +368,15 @@ def conv3d_dx_reference(
     the cotangent with the flipped, channel-swapped weights, zero bias."""
     zero = torch.zeros(w.shape[3], dtype=torch.float32, device=g.device)
     return conv3d_same_reference(g, flip_weights(w), zero, out_dtype=out_dtype)
+
+
+def conv3d_dx_valid_reference(
+    g: torch.Tensor, w: torch.Tensor, out_dtype: Optional[torch.dtype] = None
+) -> torch.Tensor:
+    """The plain version of ``conv3d_dx_valid_cuda``: the cotangent
+    zero-padded by 2 planes on each side, then ``conv3d_valid_reference``
+    with the flipped, channel-swapped weights and zero bias
+    (lowc_conv.py:609-623)."""
+    zero = torch.zeros(w.shape[3], dtype=torch.float32, device=g.device)
+    gp = F.pad(g, (0, 0, 0, 0, 0, 0, 2, 2))
+    return conv3d_valid_reference(gp, flip_weights(w), zero, out_dtype=out_dtype)

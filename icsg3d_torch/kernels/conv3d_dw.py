@@ -1,5 +1,5 @@
-"""Weight gradient of the 3x3x3 SAME conv: the Hopper kernel, its loader,
-and its plain PyTorch version.
+"""Weight gradient of the 3x3x3 conv, SAME or depth-VALID: the Hopper
+kernel, its loader, and its plain PyTorch versions.
 
 Replaces the Pallas TPU kernel K2, ``icsg3d_tpu/ops/lowc_conv.py::
 _dw_kernel`` (launched by ``conv3d_lowc_ndcs_dw``, lowc_conv.py:372-434):
@@ -14,6 +14,12 @@ across blocks into an f32 workspace that a second pass sums in a fixed
 order (deterministic).  bf16 operands run on mma.sync tensor cores fed by
 a cp.async ring; f32 operands (the VAE's f32 output head) on an FMA
 kernel.  See the note in the .cu file for what bounds it.
+
+The VALID mode (``conv3d_dw_valid_cuda``, K2's ``depth_valid``,
+lowc_conv.py:380-387) takes x as a halo-padded depth slab of D + 2 planes
+and g with D: the per-shard dW of a depth-sharded conv (parallel/halo.py).
+The split-K ranges run over g's voxels.  Counters: ``launches`` (SAME),
+``launches_valid`` (VALID).
 """
 
 from __future__ import annotations
@@ -37,13 +43,14 @@ _FMA_TILE = {4: (128, 4), 16: (32, 16)}  # f32: column threads -> (rows, cols)
 
 # Incremented once per kernel launch, never by the plain version.
 launches = 0
+launches_valid = 0
 
 _lib = None
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    global launches, launches_valid
+    launches = launches_valid = 0
 
 
 def build() -> Path:
@@ -57,7 +64,7 @@ def load() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         lib.conv3d_dw.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
         )
         lib.conv3d_dw.restype = ctypes.c_int
         _lib = lib
@@ -83,11 +90,30 @@ def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     float32.  Raises on anything else; never falls back.
     """
     global launches
+    dw = _launch(x, g, 0, "conv3d_dw_cuda")
+    launches += 1
+    return dw
+
+
+def conv3d_dw_valid_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The weight gradient of the depth-VALID conv on CUDA tensors: x (B,
+    D + 2, H, W, Cin) the halo-padded slab, g (B, D, H, W, Cout).  Returns
+    dW (3, 3, 3, Cin, Cout) float32; checks as in ``conv3d_dw_cuda``."""
+    global launches_valid
+    dw = _launch(x, g, 1, "conv3d_dw_valid_cuda")
+    launches_valid += 1
+    return dw
+
+
+def _launch(x, g, off, name):
+    """One launch with x's depth window offset by ``off`` planes (x has
+    g's depth + 2*off planes)."""
     if not (x.is_cuda and g.is_cuda):
-        raise ValueError("conv3d_dw_cuda needs CUDA tensors")
-    if x.dim() != 5 or g.dim() != 5 or x.shape[:4] != g.shape[:4]:
+        raise ValueError(f"{name} needs CUDA tensors")
+    if (x.dim() != 5 or g.dim() != 5 or x.shape[0] != g.shape[0]
+            or x.shape[1] != g.shape[1] + 2 * off or x.shape[2:4] != g.shape[2:4]):
         raise ValueError(
-            f"want x (B,D,H,W,Cin) and g (B,D,H,W,Cout), got "
+            f"want x (B,D{' + 2' if off else ''},H,W,Cin) and g (B,D,H,W,Cout), got "
             f"{tuple(x.shape)} and {tuple(g.shape)}"
         )
     if x.dtype not in _DTYPE_CODE or g.dtype != x.dtype:
@@ -98,22 +124,20 @@ def conv3d_dw_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"g is on {g.device}, x on {x.device}")
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("x and g must be contiguous")
-    B, D, H, W, cin = x.shape
-    cout = g.shape[4]
-    vox = B * D * H * W
+    B, D, H, W, cout = g.shape
+    cin = x.shape[4]
     lib = load()
-    splits = _num_splits(vox, cin, cout, x.dtype)
+    splits = _num_splits(B * D * H * W, cin, cout, x.dtype)
     ws = torch.empty(splits * 27 * cin * cout, dtype=torch.float32, device=x.device)
     dw = torch.empty((3, 3, 3, cin, cout), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.conv3d_dw(
             x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-            B, D, H, W, cin, cout, _DTYPE_CODE[x.dtype], splits, stream,
+            B, D, H, W, cin, cout, _DTYPE_CODE[x.dtype], splits, off, stream,
         )
     if err != 0:
-        raise RuntimeError(f"conv3d_dw kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return dw
 
 
@@ -126,11 +150,21 @@ def conv3d_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     TF32 off for cuBLAS matmuls (``torch.backends.cuda.matmul.allow_tf32 =
     False``): TF32 keeps about three decimal digits.
     """
+    return _reference(x, g, 1)
+
+
+def conv3d_dw_valid_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``conv3d_dw_valid_cuda``: ``conv3d_dw_reference``
+    without the depth pad (x has g's depth + 2 planes)."""
+    return _reference(x, g, 0)
+
+
+def _reference(x, g, depth_pad):
     if x.is_cuda:
         torch.backends.cuda.matmul.allow_tf32 = False
-    B, D, H, W, cin = x.shape
-    cout = g.shape[4]
-    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    B, D, H, W, cout = g.shape
+    cin = x.shape[4]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, 1, 1, 1, 1, depth_pad, depth_pad))
     gf = g.float().reshape(-1, cout)
     dw = torch.empty((27, cin, cout), dtype=torch.float32, device=x.device)
     for tap in range(27):

@@ -13,6 +13,12 @@ a whole block is one call of the fused conv kernel (ops/conv.py).  In
 training a block is the differentiable conv (epilogue ``bias``), then a
 batch-statistics BatchNorm in plain torch with Flax's numerics (see
 ``BatchNorm.train_forward``), then the activation.
+
+With a (data, spatial) ``mesh`` (parallel/mesh.py) the conv of a block runs
+depth-sharded (parallel/halo.conv_sharded) whenever the batch divides by
+``data`` and the depth by ``spatial``, and the SAME kernel otherwise, as
+the JAX package's ``SpatialMajorConv`` does for indivisible shapes
+(models/layers.py:134-149).  BatchNorm and the activation stay global.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from icsg3d_torch.ops.conv import conv3d_same, conv3d_same_diff, fold_batchnorm
+from icsg3d_torch.parallel.halo import conv_sharded, mesh_divides
+from icsg3d_torch.parallel.mesh import Mesh
 
 KERAS_BN_MOMENTUM = 0.99
 KERAS_BN_EPSILON = 1e-3
@@ -50,6 +58,13 @@ class Conv3d(nn.Module):
         self.kernel = nn.Parameter(torch.empty(k, k, k, cin, cout))
         self.bias = nn.Parameter(torch.zeros(cout))
         lecun_normal_(self.kernel, k * k * k * cin, generator)
+
+    def diff(self, x: torch.Tensor, mesh: Optional[Mesh] = None) -> torch.Tensor:
+        """The differentiable 3x3x3 conv + bias, depth-sharded over ``mesh``
+        where it divides x."""
+        if mesh is not None and mesh_divides(x, mesh):
+            return conv_sharded(x, self.kernel, self.bias, mesh)
+        return conv3d_same_diff(x, self.kernel, self.bias)
 
     def pointwise(self, x: torch.Tensor) -> torch.Tensor:
         """A 1x1x1 conv in f32 (the U-Net heads): a plain matmul."""
@@ -136,6 +151,7 @@ def conv_block(
     slope: float = 0.3,
     out_dtype: Optional[torch.dtype] = None,
     train: bool = False,
+    mesh: Optional[Mesh] = None,
 ) -> torch.Tensor:
     """Conv3D(3x3x3, SAME) + BatchNorm + activation.
 
@@ -146,6 +162,7 @@ def conv_block(
     Eval mode is one fused kernel call.  ``train=True`` runs the
     differentiable conv and batch-statistics BN (updating the running
     statistics); its output is in x.dtype and ``out_dtype`` is ignored.
+    ``mesh`` shards the conv in depth where it divides x (module note).
     """
     if order == "relu_bn":
         if act != "relu":
@@ -158,16 +175,17 @@ def conv_block(
     else:
         raise ValueError(f"unknown order {order!r}")
     if train:
-        y = conv3d_same_diff(x, conv.kernel, conv.bias)
+        y = conv.diff(x, mesh)
         if order == "relu_bn":
             return bn.train_forward(torch.relu(y))
         y = bn.train_forward(y)
         return leaky_relu(y, slope) if act == "leaky" else torch.relu(y)
     scale, shift = bn.fold()
-    return conv3d_same(
-        x, conv.kernel, conv.bias, scale=scale, shift=shift,
-        epilogue=epilogue, out_dtype=out_dtype, slope=slope,
-    )
+    fused = dict(scale=scale, shift=shift, epilogue=epilogue, out_dtype=out_dtype,
+                 slope=slope)
+    if mesh is not None and mesh_divides(x, mesh):
+        return conv_sharded(x, conv.kernel, conv.bias, mesh, **fused)
+    return conv3d_same(x, conv.kernel, conv.bias, **fused)
 
 
 def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:

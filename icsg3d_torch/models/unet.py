@@ -21,6 +21,12 @@ which updates the running statistics.  The heads are f32 1x1x1 convs, plain
 matmuls, in both modes.
 ``unet_features`` is the DFC-VAE's feature extractor: convs 1..max(taps)
 only, returning the post-ReLU, pre-BN activations of the tap convs.
+
+``spatial_mesh`` (a parallel/mesh.Mesh, default None) shards each block's
+conv in depth where the mesh divides it (icsg3d_tpu/models/unet.py:46-48,
+101-104); BatchNorm, pools, upsampling and the 1x1x1 heads stay global.
+``unet_features`` never shards: the frozen perceptual U-Net gets no mesh
+in the JAX package either (apps/train_vae.py:166-171).
 """
 
 from __future__ import annotations
@@ -39,13 +45,16 @@ from icsg3d_torch.models.layers import (
     upsample_3d,
 )
 from icsg3d_torch.ops.conv import conv3d_same_diff
+from icsg3d_torch.parallel.mesh import Mesh
 
 
 class UNet3D(nn.Module):
     def __init__(self, cfg: UNetConfig = UNetConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 spatial_mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
+        self.spatial_mesh = spatial_mesh
         plan = []  # (cin, cout) per conv, in graph order
         ch = cfg.in_channels
         skips = []
@@ -85,7 +94,7 @@ class UNet3D(nn.Module):
             idx += 1
             return conv_block(
                 h, getattr(self, f"conv{idx}"), getattr(self, f"bn{idx}"),
-                order="relu_bn", act="relu", train=train,
+                order="relu_bn", act="relu", train=train, mesh=self.spatial_mesh,
             )
 
         skips = []

@@ -17,6 +17,11 @@ In eval mode every 3x3x3 conv block is one fused kernel call
 (models/layers.conv_block); ``train=True`` runs the differentiable conv and
 batch-statistics BN (updating the running statistics).  The DFC loss is in
 train/vae.py.
+
+``spatial_mesh`` (a parallel/mesh.Mesh, default None) shards every 3x3x3
+conv in depth where the mesh divides it: the blocks, the encoder's last
+conv and the output head (icsg3d_tpu/models/vae.py:49, 104-108, 194-197,
+236-239).  BatchNorm, pools, upsampling and the dense layers stay global.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from icsg3d_torch.models.layers import (
     max_pool_3d,
     upsample_3d,
 )
-from icsg3d_torch.ops.conv import conv3d_same_diff
+from icsg3d_torch.parallel.mesh import Mesh
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -46,9 +51,11 @@ def _dtype(name: str) -> torch.dtype:
 
 class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig = VAEConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 spatial_mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
+        self.spatial_mesh = spatial_mesh
         cin = cfg.grid.channels + cfg.cond_bins * cfg.cond_repeat
         for i, f in enumerate(cfg.filters):
             self.add_module(f"Conv_{i}", Conv3d(cin, f, generator=generator))
@@ -77,10 +84,10 @@ class Encoder(nn.Module):
             x = conv_block(
                 x, getattr(self, f"Conv_{i}"), getattr(self, f"BatchNorm_{i}"),
                 order="bn_act", act="leaky", slope=cfg.leaky_slope, train=train,
+                mesh=self.spatial_mesh,
             )
             x = max_pool_3d(x)
-        last = getattr(self, f"Conv_{len(cfg.filters)}")
-        x = conv3d_same_diff(x, last.kernel, last.bias)
+        x = getattr(self, f"Conv_{len(cfg.filters)}").diff(x, self.spatial_mesh)
         x = leaky_relu(x, cfg.leaky_slope)
         x = x.reshape(x.shape[0], -1)
         x = torch.relu(self.Dense_0(x, dtype)).float()
@@ -89,9 +96,11 @@ class Encoder(nn.Module):
 
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig = VAEConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 spatial_mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
+        self.spatial_mesh = spatial_mesh
         # d / 2^(len-1) seed grid: (4,4,4,4) at the reference defaults
         self.start = cfg.grid.d // 2 ** (len(cfg.filters) - 1)
         self.c0 = max(cfg.latent_dim // self.start ** 3, 1)
@@ -122,6 +131,7 @@ class Decoder(nn.Module):
             x = conv_block(
                 x, getattr(self, f"Conv_{i}"), getattr(self, f"BatchNorm_{i}"),
                 order="bn_act", act="leaky", slope=cfg.leaky_slope, train=train,
+                mesh=self.spatial_mesh,
             )
             if i < n - 1:
                 x = upsample_3d(x)
@@ -130,19 +140,30 @@ class Decoder(nn.Module):
         return conv_block(
             x.float(), self.decoder_output, self.output_bn,
             order="bn_act", act="relu", out_dtype=torch.float32, train=train,
+            mesh=self.spatial_mesh,
         )
 
 
 class ConditionalDFCVAE(nn.Module):
     """Encoder + reparameterized sample + decoder; ``encode``/``decode`` as
-    in the Flax module."""
+    in the Flax module.  Setting ``spatial_mesh`` sets the encoder's and the
+    decoder's."""
 
     def __init__(self, cfg: VAEConfig = VAEConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 spatial_mesh: Optional[Mesh] = None):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Encoder(cfg, generator)
-        self.decoder = Decoder(cfg, generator)
+        self.encoder = Encoder(cfg, generator, spatial_mesh)
+        self.decoder = Decoder(cfg, generator, spatial_mesh)
+
+    @property
+    def spatial_mesh(self) -> Optional[Mesh]:
+        return self.encoder.spatial_mesh
+
+    @spatial_mesh.setter
+    def spatial_mesh(self, mesh: Optional[Mesh]) -> None:
+        self.encoder.spatial_mesh = self.decoder.spatial_mesh = mesh
 
     def forward(self, x, cond, eps, train: bool = False):
         """Full VAE pass (vae.py:275-283) with the reparameterization noise

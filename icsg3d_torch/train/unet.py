@@ -27,17 +27,21 @@ from icsg3d_torch.config import UNetConfig
 from icsg3d_torch.data.store import prefetch_to_device
 from icsg3d_torch.models import UNet3D
 from icsg3d_torch.ops import losses, metrics
+from icsg3d_torch.parallel.mesh import Mesh
 from icsg3d_torch.train.checkpoints import CheckpointManager
 from icsg3d_torch.train.state import TrainState
 from icsg3d_torch.train.vae import _assemble_x, _host_metrics
 
 
 def create_unet_state(cfg: UNetConfig, learning_rate: float, seed: int,
-                      device) -> TrainState:
+                      device, spatial_mesh: Optional[Mesh] = None) -> TrainState:
     """A seeded fresh U-Net (Flax's lecun-normal distribution, not its
-    bits) on ``device`` with its Adam optimizer."""
+    bits) on ``device`` with its Adam optimizer.  ``spatial_mesh`` shards
+    its convs in depth (models/unet.py; train/unet.py:40-47 of the JAX
+    package); ``device`` is the lead device, where the parameters live."""
     gen = torch.Generator().manual_seed(seed)
-    return TrainState.create(UNet3D(cfg, gen).to(device), learning_rate)
+    model = UNet3D(cfg, gen, spatial_mesh).to(device)
+    return TrainState.create(model, learning_rate)
 
 
 def _unet_losses(model: UNet3D, batch, class_weights: torch.Tensor, train: bool):

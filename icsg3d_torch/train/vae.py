@@ -29,17 +29,20 @@ from icsg3d_torch.models import ConditionalDFCVAE, UNet3D
 from icsg3d_torch.models.unet import unet_features
 from icsg3d_torch.ops import losses
 from icsg3d_torch.ops.grid import coordinate_grids
+from icsg3d_torch.parallel.mesh import Mesh
 from icsg3d_torch.train.checkpoints import CheckpointManager
 from icsg3d_torch.train.common import mean_metrics as _mean_metrics
 from icsg3d_torch.train.state import TrainState
 
 
 def create_vae_state(cfg: VAEConfig, learning_rate: float, seed: int,
-                     device) -> TrainState:
+                     device, spatial_mesh: Optional[Mesh] = None) -> TrainState:
     """A seeded fresh VAE (Flax's lecun-normal distribution, not its bits)
-    on ``device`` with its Adam optimizer."""
+    on ``device`` with its Adam optimizer.  ``spatial_mesh`` shards its
+    convs in depth (models/vae.py; train/vae.py:34-41 of the JAX package);
+    ``device`` is the lead device, where the parameters live."""
     gen = torch.Generator().manual_seed(seed)
-    model = ConditionalDFCVAE(cfg, gen).to(device)
+    model = ConditionalDFCVAE(cfg, gen, spatial_mesh).to(device)
     return TrainState.create(model, learning_rate)
 
 

@@ -308,3 +308,153 @@ def test_unet_train_step_on_card_matches_cpu(cuda_device):
     for n, g in out["cpu"][1].items():
         err = float((out["cuda"][1][n] - g).abs().max())
         assert err <= 2e-3 * max(float(g.abs().max()), 1e-6), n
+
+
+# -- the depth-VALID modes (K1 VALID, its full-window dx, K2 VALID) ------------
+
+VALID_CASES = [
+    # (B, D out, H, W, Cin, Cout, in dtype, out dtype, epilogue): x has D + 2
+    (2, 4, 8, 8, 14, 16, torch.bfloat16, torch.bfloat16, "affine_leaky"),
+    (2, 1, 2, 2, 128, 4, torch.bfloat16, torch.bfloat16, "bias"),  # enc Conv_4 slab
+    (1, 4, 8, 8, 64, 72, torch.bfloat16, torch.bfloat16, "relu_affine"),
+    (2, 8, 8, 8, 16, 4, torch.float32, torch.float32, "affine_relu"),  # f32 head
+    (1, 2, 4, 4, 33, 130, torch.bfloat16, torch.float32, "affine_relu"),
+    (2, 3, 8, 8, 24, 20, torch.float32, torch.float32, "affine_leaky"),
+    (1, 5, 7, 6, 4, 9, torch.float32, torch.bfloat16, "bias"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", VALID_CASES)
+def test_valid_kernel_matches_reference_on_card(cuda_device, case):
+    B, D, H, W, cin, cout, dt, odt, epi = case
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(B, D + 2, H, W, cin, generator=g).to(cuda_device, dt)
+    w = (torch.randn(3, 3, 3, cin, cout, generator=g) / (27 * cin) ** 0.5).to(
+        cuda_device, dt)
+    b, scale, shift = (torch.randn(cout, generator=g).to(cuda_device) for _ in range(3))
+    n0, s0 = k.launches_valid, k.launches
+    got = k.conv3d_valid_cuda(x, w, b, scale, shift, epi, odt)
+    torch.cuda.synchronize()
+    assert (k.launches_valid, k.launches) == (n0 + 1, s0)
+    ref = k.conv3d_valid_reference(x, w, b, scale, shift, epi, odt)
+    assert got.dtype == odt and got.shape == ref.shape == (B, D, H, W, cout)
+    assert _rel_err(got, ref) <= (1e-2 if odt == torch.bfloat16 else 1e-4)
+
+
+DX_VALID_CASES = [
+    # (B, D of g, H, W, Cin, Cout, dtype): dx has D + 2 planes of Cin
+    (2, 4, 8, 8, 4, 32, torch.bfloat16),
+    (2, 1, 2, 2, 128, 4, torch.bfloat16),   # g of 4 channels, one plane
+    (1, 3, 6, 5, 64, 72, torch.bfloat16),
+    (2, 8, 8, 8, 16, 4, torch.float32),     # the f32 output head
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DX_VALID_CASES)
+def test_dx_valid_kernel_matches_reference_on_card(cuda_device, case):
+    B, D, H, W, cin, cout, dt = case
+    g = torch.Generator(device="cpu").manual_seed(6)
+    gy = torch.randn(B, D, H, W, cout, generator=g).to(cuda_device, dt)
+    w = (torch.randn(3, 3, 3, cin, cout, generator=g) / (27 * cout) ** 0.5).to(
+        cuda_device, dt)
+    n0, d0 = k.launches_dx_valid, k.launches_dx
+    got = k.conv3d_dx_valid_cuda(gy, w)
+    torch.cuda.synchronize()
+    assert (k.launches_dx_valid, k.launches_dx) == (n0 + 1, d0)
+    ref = k.conv3d_dx_valid_reference(gy, w)
+    assert got.shape == (B, D + 2, H, W, cin) and got.dtype == dt
+    assert _rel_err(got, ref) <= (1e-2 if dt == torch.bfloat16 else 1e-4)
+
+
+DW_VALID_CASES = [
+    # (B, D of g, H, W, Cin, Cout, dtype): x has D + 2 planes
+    (2, 4, 8, 8, 16, 32, torch.bfloat16),   # cp.async path
+    (2, 4, 8, 8, 14, 16, torch.bfloat16),   # Cin 14: scalar loads
+    (2, 1, 2, 2, 128, 4, torch.bfloat16),   # Cout 4, one plane per slab
+    (2, 3, 7, 6, 24, 40, torch.bfloat16),   # ragged tiles
+    (2, 8, 8, 8, 16, 4, torch.float32),     # the f32 output head
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_VALID_CASES)
+def test_dw_valid_kernel_matches_reference_on_card(cuda_device, case):
+    B, D, H, W, cin, cout, dt = case
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn(B, D + 2, H, W, cin, generator=g).to(cuda_device, dt)
+    gy = torch.randn(B, D, H, W, cout, generator=g).to(cuda_device, dt)
+    n0, s0 = kdw.launches_valid, kdw.launches
+    got = kdw.conv3d_dw_valid_cuda(x, gy)
+    torch.cuda.synchronize()
+    assert (kdw.launches_valid, kdw.launches) == (n0 + 1, s0)
+    ref = kdw.conv3d_dw_valid_reference(x, gy)
+    assert got.shape == (3, 3, 3, cin, cout) and _rel_err(got, ref) <= 1e-3
+    assert torch.equal(got, kdw.conv3d_dw_valid_cuda(x, gy))  # deterministic
+
+
+@pytest.mark.cuda
+def test_valid_wrappers_check_on_card(cuda_device):
+    x = torch.zeros(1, 2, 4, 4, 8, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, 3, 8, 8, device=cuda_device, dtype=torch.bfloat16)
+    b = torch.zeros(8, device=cuda_device)
+    with pytest.raises(ValueError, match="no output plane"):
+        k.conv3d_valid_cuda(x, w, b)
+    with pytest.raises(ValueError, match="want x"):
+        kdw.conv3d_dw_valid_cuda(x, x)  # x must have 2 planes more than g
+    with pytest.raises(ValueError, match="CUDA"):
+        kdw.conv3d_dw_valid_cuda(x.cpu(), x.cpu()[:, :0])
+
+
+def _sharded_vs_same(mesh, device, batch):
+    """conv_sharded over ``mesh`` against the SAME Function on ``device``:
+    values and the three gradients, and one VALID forward, dx and dW
+    launch per cell."""
+    from icsg3d_torch.ops.conv import conv3d_same_diff
+    from icsg3d_torch.parallel import conv_sharded
+
+    n = mesh.devices.size
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x0 = torch.randn(batch, 8, 8, 8, 32, generator=g).to(device, torch.bfloat16)
+    w0 = torch.randn(3, 3, 3, 32, 16, generator=g).to(device) / (27 * 32) ** 0.5
+    b0 = torch.randn(16, generator=g).to(device)
+    gy = torch.randn(batch, 8, 8, 8, 16, generator=g).to(device, torch.bfloat16)
+    out = []
+    for sharded in (True, False):
+        x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+        counts = (k.launches_valid, k.launches_dx_valid, kdw.launches_valid)
+        y = conv_sharded(x, w, b, mesh) if sharded else conv3d_same_diff(x, w, b)
+        (y.float() * gy.float()).sum().backward()
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+        got = (k.launches_valid - counts[0], k.launches_dx_valid - counts[1],
+               kdw.launches_valid - counts[2])
+        assert got == ((n, n, n) if sharded else (0, 0, 0))
+        out.append((y, x.grad, w.grad, b.grad))
+    for name, a, ref in zip(("y", "dx", "dw", "db"), *out):
+        assert a.device == ref.device, name
+        assert _rel_err(a, ref) <= (1e-2 if a.dtype == torch.bfloat16 else 1e-3), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(1, 2), (2, 2)])
+def test_sharded_conv_on_card_matches_same_conv(cuda_device, mesh_shape):
+    """A mesh of the one card (cells share it)."""
+    from icsg3d_torch.parallel import make_mesh
+
+    n = mesh_shape[0] * mesh_shape[1]
+    _sharded_vs_same(make_mesh(*mesh_shape, devices=[cuda_device] * n), cuda_device, 4)
+
+
+@pytest.mark.cuda
+def test_sharded_conv_across_cards_matches_same_conv(cuda_device):
+    """make_mesh's default mesh over every visible card (n/2 x 2): slabs
+    and halos cross cards, the result comes back to card 0."""
+    from icsg3d_torch.parallel import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA GPUs")
+    mesh = make_mesh(n_spatial=2)
+    assert len({d.index for d in mesh.devices.flat}) == mesh.devices.size
+    _sharded_vs_same(mesh, torch.device("cuda", 0), 2 * mesh.shape["data"])

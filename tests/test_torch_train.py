@@ -14,7 +14,7 @@
 - ``_assemble_x`` from lattice lengths; the cached-feature loss equals the
   live one; the eval step.
 - The CLI on the CPU: history/best/latest written, --resume, NaN never
-  best, best.npz read by generate, --spatial refused.
+  best, best.npz read by generate, --spatial 2 on one device refused.
 
 Both packages get the same variables (every leaf randomised, carried by
 weights.load_flax_variables) and the same noise: the port's ``eps`` is
@@ -321,8 +321,15 @@ def test_checkpoint_policy(tmp_path):
 
 
 def test_cli_refuses_spatial_sharding(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ttrain.main(["--data", str(tmp_path), "--spatial", "2"] + CLI)
+    """--spatial 2 needs two mesh cells: one device is refused with
+    make_mesh's error and the hint to repeat a device, and the repeated
+    CPU device trains."""
+    data = _write_dataset(tmp_path / "data")
+    with pytest.raises(ValueError, match="needs 2 devices, have 1.*cpu,cpu"):
+        ttrain.main(["--data", data, "--spatial", "2"] + CLI)
+    hist = ttrain.main(["--data", data, "--nrot", "0", "--epochs", "1", "--spatial", "2",
+                        "--ckpt", str(tmp_path / "ckpt")] + CLI + ["--device", "cpu,cpu"])
+    assert hist[0]["steps"] == 4 and np.isfinite(hist[0]["train"]["loss"])
 
 
 def test_cli_resume_refuses_an_orbax_checkpoint(tmp_path):

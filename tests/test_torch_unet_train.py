@@ -275,7 +275,7 @@ def test_train_unet_epoch_scan_matches_resident(ws, dataset):
 
 
 def test_train_unet_refusals(dataset, tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         tapp.main(["--data", dataset, "--spatial", "2"] + CLI)
     with pytest.raises(SystemExit):
         tapp.main(["--data", dataset, "--epoch-scan", "--ckpt", str(tmp_path)] + CLI)
