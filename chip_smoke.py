@@ -22,10 +22,15 @@ Phases (any failure exits nonzero, before the result line):
    - K1 as dx: the 18 input-gradient convs of a training step, against
      ``conv3d_dx_reference``; library torch.nn.grad.conv3d_input;
    - K2: the 10 VAE weight gradients, against ``conv3d_dw_reference``;
-     library torch.nn.grad.conv3d_weight.
+     library torch.nn.grad.conv3d_weight.  A second launch must give the
+     same bits (the split-K sum runs in a fixed order).  Each dW row also
+     prints K2's path (``wgmma+tma``, ``wgmma+cp.async``, or the f32 head's
+     ``fma``), bound/kernel, the split-K workspace MB and split count, and
+     the second (split-sum) pass's device ms from one profiled launch.
    Bound on max|err| / max|ref|: 1e-2 for bf16 outputs, 1e-4 for f32
    outputs, 1e-3 for dW (f32 out, but sums of 10^3..10^6 bf16 products
-   taken in another order).
+   taken in another order).  Each pass's summary line gives its sums and
+   kernel/library and kernel/bound.
 4. Generation: ``icsg3d_torch.apps.generate.main`` on a synthetic 32^3
    GridDataset with seeded full-width weights (.npz), 40 samples at batch
    20, once with ``--fused`` and once on the host watershed path.  Checks
@@ -83,8 +88,8 @@ Phases (any failure exits nonzero, before the result line):
    (``conv3d_valid_cuda`` vs ``conv3d_valid_reference``; library F.conv3d
    with padding (0, 1, 1)), its full-window dx (``conv3d_dx_valid_cuda``;
    library torch.nn.grad.conv3d_input) and K2 VALID
-   (``conv3d_dw_valid_cuda``; library conv3d_weight), with the bounds of
-   phase 3.
+   (``conv3d_dw_valid_cuda``; library conv3d_weight), with the bounds,
+   the dW columns and the same-bits check of phase 3.
 15. Sharded training: ``apps.train_vae.main --spatial 2 --device
    cuda:0,cuda:0`` at production width for one epoch (4 steps + 1 val
    batch), then ``apps.train_unet.main --spatial 2`` for one epoch at
@@ -334,6 +339,50 @@ def bound_ms(pas: str, cin: int, cout: int, edge: int, idt: str, odt: str,
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
+def dw_launch_report(run, args, off: int):
+    """K2's launch at ``args`` = (x, g): its path (``wgmma+tma``,
+    ``wgmma+cp.async`` or the f32 ``fma`` head), workspace bytes and split
+    count from the launch plan, and the device ms of the main kernel and of
+    the second (split-sum) pass, averaged over three profiled calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from icsg3d_torch.kernels import conv3d_dw as kdw
+
+    x, g = args
+    info = kdw.describe(tuple(x.shape), tuple(g.shape), x.dtype, off)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            run(*args)
+        sync()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    info["main_ms"] = sum(e.time_range.elapsed_us() for e in dev
+                          if "conv3d_dw" in e.name) / 3e3
+    info["split_ms"] = sum(e.time_range.elapsed_us() for e in dev
+                           if "reduce_splits" in e.name) / 3e3
+    return info
+
+
+def dw_row_note(info: dict, ms: float, bms: float) -> str:
+    """The K2 columns of a dW row: path, bound share, workspace MB, the
+    split pass's device ms and its share of the profiled launch."""
+    total = info["main_ms"] + info["split_ms"]
+    return (f"  {info['path']:14s} bound/kernel {bms / ms:5.3f} ws "
+            f"{info['ws_bytes'] / 2 ** 20:5.1f} MB x{info['splits']:<2d} split pass "
+            f"{info['split_ms']:.4f} ms ({info['split_ms'] / max(total, 1e-9):5.1%})")
+
+
+def pass_summary(mine) -> str:
+    """A pass's sums: kernel, plain, library and bound ms, kernel/library
+    and kernel/bound."""
+    k, pl, lib, b = (sum(r[key] for r in mine)
+                     for key in ("ms", "plain_ms", "library_ms", "bound_ms"))
+    return (f"kernel {k:.3f} ms, plain {pl:.3f} ms, library {lib:.3f} ms, bound "
+            f"{b:.3f} ms; kernel/library {k / lib:.3f}, kernel/bound {k / b:.2f}")
+
+
 def phase_kernels(card: str, shapes, batch: int):
     import torch
     import torch.nn.functional as F
@@ -446,22 +495,23 @@ def phase_backward_kernels(card: str, sets):
                   f"{pas} {name}: shape {tuple(got.shape)} or non-finite output")
             check(rel_err <= bound, f"{pas} {name} {cin}->{cout}@{edge}: rel err "
                   f"{rel_err:.3e} > {bound:g}")
+            if pas == "dw":  # a fixed-order split sum: the same bits again
+                check(torch.equal(got, run(*args)), f"dw {name}: a second launch "
+                      "gave other bits")
             ms = cuda_median_ms(lambda: run(*args))
             plain_ms = cuda_median_ms(lambda: plain(*args))
             library_ms = cuda_median_ms(library)
             bms, bby = bound_ms(pas, cin, cout, edge, idt, idt, batch)
+            note = dw_row_note(dw_launch_report(run, args, 0), ms, bms) if pas == "dw" else ""
             print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} {idt:4s} "
                   f"{abs_err:11.3e} {rel_err:8.2e} {bound:6g} {ms:10.4f} "
-                  f"{plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}")
+                  f"{plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}{note}")
             mine.append(dict(model=name, cin=cin, cout=cout, edge=edge, batch=batch,
                              abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bms, bound_by=bby,
                              epilogue=None, **{"pass": pas}))
         rows += mine
-        print(f"  {pas} at batch {batch}, {len(mine)} shapes: kernel {sum(r['ms'] for r in mine):.3f} ms, plain "
-              f"{sum(r['plain_ms'] for r in mine):.3f} ms, library "
-              f"{sum(r['library_ms'] for r in mine):.3f} ms, bound "
-              f"{sum(r['bound_ms'] for r in mine):.3f} ms")
+        print(f"  {pas} at batch {batch}, {len(mine)} shapes: {pass_summary(mine)}")
     torch.cuda.empty_cache()
     return rows
 
@@ -1386,24 +1436,24 @@ def phase_valid_kernels(card: str, sets, same_rows):
                   f"{pas} valid {name}: shape {tuple(got.shape)} or non-finite output")
             check(rel_err <= bound, f"{pas} valid {name} {cin}->{cout}@{edge}: rel err "
                   f"{rel_err:.3e} > {bound:g}")
+            if pas == "dw":  # a fixed-order split sum: the same bits again
+                check(torch.equal(got, run(*args)), f"dw valid {name}: a second "
+                      "launch gave other bits")
             ms = cuda_median_ms(lambda: run(*args))
             plain_ms = cuda_median_ms(lambda: plain(*args))
             library_ms = cuda_median_ms(library)
             bms, bby = bound_ms(pas, cin, cout, edge, idt, idt, batch, depth=d)
+            note = dw_row_note(dw_launch_report(run, args, 1), ms, bms) if pas == "dw" else ""
             print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} "
                   f"{d:3d}+2 {idt:4s} {abs_err:11.3e} {rel_err:8.2e} {bound:6g} "
-                  f"{ms:10.4f} {plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}")
+                  f"{ms:10.4f} {plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}{note}")
             mine.append(dict(model=name, cin=cin, cout=cout, edge=edge, batch=batch,
                              abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bms, bound_by=bby,
                              epilogue="bias" if pas == "fwd" else None,
                              **{"pass": pas + "_valid"}))
         rows += mine
-        print(f"  {pas} valid at batch {batch}, {len(mine)} shapes: kernel "
-              f"{sum(r['ms'] for r in mine):.3f} ms, plain "
-              f"{sum(r['plain_ms'] for r in mine):.3f} ms, library "
-              f"{sum(r['library_ms'] for r in mine):.3f} ms, bound "
-              f"{sum(r['bound_ms'] for r in mine):.3f} ms")
+        print(f"  {pas} valid at batch {batch}, {len(mine)} shapes: {pass_summary(mine)}")
         same = {r["model"]: r["ms"] for r in same_rows if r["pass"] == pas
                 and r["batch"] == batch and r.get("epilogue") in (None, "bias")}
         both = [r for r in mine if r["model"] in same]

@@ -149,12 +149,16 @@ def test_dx_kernel_matches_reference_on_card(cuda_device, case):
 
 
 DW_CASES = [
-    # (B, D, H, W, Cin, Cout, dtype)
-    (2, 8, 8, 8, 16, 32, torch.bfloat16),    # cp.async path
-    (2, 8, 8, 8, 14, 16, torch.bfloat16),    # Cin 14: scalar loads
-    (1, 4, 4, 4, 4, 128, torch.bfloat16),    # Cin 4
-    (2, 2, 2, 2, 128, 4, torch.bfloat16),    # Cout 4, 16 voxels
-    (2, 5, 7, 6, 24, 40, torch.bfloat16),    # ragged tiles
+    # (B, D, H, W, Cin, Cout, dtype); bf16 runs the wgmma kernel
+    (2, 8, 8, 8, 16, 32, torch.bfloat16),    # Cin on wgmma's N (swapped roles)
+    (2, 8, 8, 8, 14, 16, torch.bfloat16),    # Cin 14: channels padded to 16
+    (1, 4, 4, 4, 4, 128, torch.bfloat16),    # Cin 4 on N = 8, two M tiles of Cout
+    (2, 2, 2, 2, 128, 4, torch.bfloat16),    # Cout 4 on N = 8, edge 2
+    (2, 4, 4, 4, 64, 64, torch.bfloat16),    # edge 4
+    (2, 5, 7, 6, 24, 40, torch.bfloat16),    # ragged tiles, W != H
+    (1, 32, 32, 32, 192, 128, torch.bfloat16),  # U-Net conv13 at B = 1
+    (1, 16, 16, 16, 384, 256, torch.bfloat16),  # U-Net conv11
+    (1, 8, 8, 8, 768, 512, torch.bfloat16),  # U-Net conv9: one split, dW direct
     (2, 8, 8, 8, 16, 4, torch.float32),      # the f32 output head
     (1, 6, 5, 4, 24, 20, torch.float32),
 ]
@@ -370,10 +374,15 @@ def test_dx_valid_kernel_matches_reference_on_card(cuda_device, case):
 
 DW_VALID_CASES = [
     # (B, D of g, H, W, Cin, Cout, dtype): x has D + 2 planes
-    (2, 4, 8, 8, 16, 32, torch.bfloat16),   # cp.async path
-    (2, 4, 8, 8, 14, 16, torch.bfloat16),   # Cin 14: scalar loads
+    (2, 4, 8, 8, 16, 32, torch.bfloat16),   # Cin on wgmma's N
+    (2, 4, 8, 8, 14, 16, torch.bfloat16),   # Cin 14: channels padded to 16
+    (1, 2, 4, 4, 4, 128, torch.bfloat16),   # Cin 4
     (2, 1, 2, 2, 128, 4, torch.bfloat16),   # Cout 4, one plane per slab
+    (2, 2, 4, 4, 64, 64, torch.bfloat16),   # edge 4
     (2, 3, 7, 6, 24, 40, torch.bfloat16),   # ragged tiles
+    (1, 16, 32, 32, 192, 128, torch.bfloat16),  # conv13 slab at B = 1
+    (1, 8, 16, 16, 384, 256, torch.bfloat16),   # conv11 slab
+    (1, 4, 8, 8, 768, 512, torch.bfloat16),     # conv9 slab
     (2, 8, 8, 8, 16, 4, torch.float32),     # the f32 output head
 ]
 
