@@ -27,6 +27,12 @@ Phases (any failure exits nonzero, before the result line):
      prints K2's path (``wgmma+tma``, ``wgmma+cp.async``, or the f32 head's
      ``fma``), bound/kernel, the split-K workspace MB and split count, and
      the second (split-sum) pass's device ms from one profiled launch.
+   Each forward and dx row (and the VALID rows of phase 14) also prints
+   the conv kernel's path (``wgmma+tma`` with its tile from
+   ``kernels/conv3d.plan``: N tile, m64 sub-tiles, rows x planes, column
+   segments; or the f32 head's ``fma``) and bound/kernel, and at every
+   shape of every pass a second launch must give the same bits (no
+   atomics, no split sum in the conv kernel).
    Bound on max|err| / max|ref|: 1e-2 for bf16 outputs, 1e-4 for f32
    outputs, 1e-3 for dW (f32 out, but sums of 10^3..10^6 bf16 products
    taken in another order).  Each pass's summary line gives its sums and
@@ -49,7 +55,8 @@ Phases (any failure exits nonzero, before the result line):
    ``--fused`` from the trained checkpoint directory.
 7. Train step: the counts of one train step and one eval step alone; ms
    per step by stage (VAE forward, perceptual forwards and loss,
-   backward, Adam) and grids/s (CUDA events); one torch.profiler step.
+   backward, Adam) and grids/s (CUDA events); one torch.profiler step,
+   with the device ms and launches of each conv kernel in it.
 8. GPU vs CPU for one train step (batch 2, same weights and noise): loss
    within 2e-2 relative, and the cosine of the first and last VAE conv's
    weight gradients at least 0.95 (bf16 activations and input gradients
@@ -374,6 +381,20 @@ def dw_row_note(info: dict, ms: float, bms: float) -> str:
             f"{info['split_ms']:.4f} ms ({info['split_ms'] / max(total, 1e-9):5.1%})")
 
 
+def conv_row_note(args, mode: str, dx: bool, ms: float, bms: float) -> str:
+    """The conv3d.cu columns of a forward, dx or VALID row: the path
+    (``wgmma+tma`` with its tile: N tile, m64 sub-tiles, rows x planes,
+    column segments; or the f32 head's ``fma``) and bound/kernel."""
+    from icsg3d_torch.kernels import conv3d as k
+
+    a, w = args[0], args[1]
+    n = w.shape[3] if dx else w.shape[4]
+    d = k.describe(tuple(a.shape), n, a.dtype, mode, dx)
+    tile = (f" n{d['bn']} m{d['mt']} {d['rows']}x{d['nd']} s{d['segments']}"
+            if d["path"] != "fma" else "")
+    return f"  {d['path']}{tile} bound/kernel {bms / ms:5.3f}"
+
+
 def pass_summary(mine) -> str:
     """A pass's sums: kernel, plain, library and bound ms, kernel/library
     and kernel/bound."""
@@ -417,6 +438,8 @@ def phase_kernels(card: str, shapes, batch: int):
               f"{model} {cin}->{cout}@{edge}: non-finite output")
         check(rel_err <= bound, f"{model} {cin}->{cout}@{edge} {epi}: "
               f"rel err {rel_err:.3e} > {bound:g}")
+        check(torch.equal(got, k.conv3d_same_cuda(*args)),
+              f"{model} {cin}->{cout}@{edge}: a second launch gave other bits")
         ms = cuda_median_ms(lambda: k.conv3d_same_cuda(*args))
         plain_ms = cuda_median_ms(lambda: k.conv3d_same_reference(*args))
         xc = x.permute(0, 4, 1, 2, 3)  # channels_last_3d view, no copy
@@ -430,15 +453,13 @@ def phase_kernels(card: str, shapes, batch: int):
         bms, bby = bound_ms("fwd", cin, cout, edge, idt, odt, batch)
         print(f"  {model:12s} {cin:4d}->{cout:<4d}@{edge:<3d} {epi:13s} {odt:4s} "
               f"{abs_err:11.3e} {rel_err:9.2e} {ms:10.4f} {plain_ms:9.4f} "
-              f"{cudnn_ms:9.4f} {bms:9.4f} {bby}")
+              f"{cudnn_ms:9.4f} {bms:9.4f} {bby}"
+              f"{conv_row_note(args, 'same', False, ms, bms)}")
         rows.append(dict(model=model, cin=cin, cout=cout, edge=edge, epilogue=epi,
                          batch=batch, abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                          library_ms=cudnn_ms, bound_ms=bms, bound_by=bby,
                          **{"pass": "fwd"}))
-    print(f"  total over the shapes: kernel {sum(r['ms'] for r in rows):.3f} ms, "
-          f"plain {sum(r['plain_ms'] for r in rows):.3f} ms, cuDNN "
-          f"{sum(r['library_ms'] for r in rows):.3f} ms, bound "
-          f"{sum(r['bound_ms'] for r in rows):.3f} ms")
+    print(f"  total over the shapes: {pass_summary(rows)}")
     del x, w, got, ref
     torch.cuda.empty_cache()
     return rows
@@ -495,14 +516,15 @@ def phase_backward_kernels(card: str, sets):
                   f"{pas} {name}: shape {tuple(got.shape)} or non-finite output")
             check(rel_err <= bound, f"{pas} {name} {cin}->{cout}@{edge}: rel err "
                   f"{rel_err:.3e} > {bound:g}")
-            if pas == "dw":  # a fixed-order split sum: the same bits again
-                check(torch.equal(got, run(*args)), f"dw {name}: a second launch "
-                      "gave other bits")
+            # no atomics; dW's split sum runs in a fixed order: the same bits again
+            check(torch.equal(got, run(*args)), f"{pas} {name}: a second launch "
+                  "gave other bits")
             ms = cuda_median_ms(lambda: run(*args))
             plain_ms = cuda_median_ms(lambda: plain(*args))
             library_ms = cuda_median_ms(library)
             bms, bby = bound_ms(pas, cin, cout, edge, idt, idt, batch)
-            note = dw_row_note(dw_launch_report(run, args, 0), ms, bms) if pas == "dw" else ""
+            note = (dw_row_note(dw_launch_report(run, args, 0), ms, bms) if pas == "dw"
+                    else conv_row_note(args, "same", True, ms, bms))
             print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} {idt:4s} "
                   f"{abs_err:11.3e} {rel_err:8.2e} {bound:6g} {ms:10.4f} "
                   f"{plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}{note}")
@@ -1326,6 +1348,12 @@ def profile_step(fn, step_ms: float, tag: str, card: str):
           f"{max(0.0, 1 - busy_ms / step_ms):.3f}")
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    for label, key in (("forward/dx kernel conv3d.cu, bf16", "conv3d_wgmma_kernel"),
+                       ("forward/dx kernel conv3d.cu, f32 head", "conv3d_fma_kernel"),
+                       ("weight-gradient kernel conv3d_dw.cu", "conv3d_dw_")):
+        mine = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
+        print(f"  [{tag}] {label}: {sum(m for m, _ in mine):.3f} ms over "
+              f"{sum(n for _, n in mine)} launches")
 
 
 def phase_unet_train_cpu_parity(state, batch, cw):
@@ -1436,14 +1464,17 @@ def phase_valid_kernels(card: str, sets, same_rows):
                   f"{pas} valid {name}: shape {tuple(got.shape)} or non-finite output")
             check(rel_err <= bound, f"{pas} valid {name} {cin}->{cout}@{edge}: rel err "
                   f"{rel_err:.3e} > {bound:g}")
-            if pas == "dw":  # a fixed-order split sum: the same bits again
-                check(torch.equal(got, run(*args)), f"dw valid {name}: a second "
-                      "launch gave other bits")
+            check(torch.equal(got, run(*args)), f"{pas} valid {name}: a second "
+                  "launch gave other bits")
             ms = cuda_median_ms(lambda: run(*args))
             plain_ms = cuda_median_ms(lambda: plain(*args))
             library_ms = cuda_median_ms(library)
             bms, bby = bound_ms(pas, cin, cout, edge, idt, idt, batch, depth=d)
-            note = dw_row_note(dw_launch_report(run, args, 1), ms, bms) if pas == "dw" else ""
+            if pas == "dw":
+                note = dw_row_note(dw_launch_report(run, args, 1), ms, bms)
+            else:
+                note = conv_row_note(args, "valid" if pas == "fwd" else "full", pas == "dx",
+                                     ms, bms)
             print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} "
                   f"{d:3d}+2 {idt:4s} {abs_err:11.3e} {rel_err:8.2e} {bound:6g} "
                   f"{ms:10.4f} {plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}{note}")

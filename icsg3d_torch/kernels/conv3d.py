@@ -1,5 +1,5 @@
 """3x3x3 conv with a fused epilogue, SAME or depth-VALID: the Hopper kernel,
-its build and loader, and its plain PyTorch versions.
+its launch plan, its build and loader, and its plain PyTorch versions.
 
 Replaces two Pallas TPU kernels of the JAX package:
 
@@ -9,15 +9,19 @@ Replaces two Pallas TPU kernels of the JAX package:
   inference BN + ReLU), whose epilogue is what every eval-mode conv block
   of the VAE and the U-Net computes.
 
-The kernel (``icsg3d_torch/csrc/conv3d.cu``) is an implicit GEMM on NDHWC
-data with M = B*D*H*W voxels, N = Cout, K = 27*Cin, f32 accumulation and
-zero padding by zero-filling predicated loads.  bf16 input runs on
-mma.sync tensor cores fed by a 3-stage cp.async ring; f32 input on a plain
-FMA kernel.  At the U-Net's widths the conv is bound by tensor-core
-throughput, which only wgmma reaches in full (see the note in the .cu
-file).  The 128x64 block tile, the absence of an im2col buffer and the
-fused epilogue keep device-memory bytes to one read of x per block column
-and one write of the output.
+The bf16 kernel (``icsg3d_torch/csrc/conv3d.cu``) runs on wgmma: for each
+kd, an implicit GEMM whose M is the output positions of a tile of rows (or
+of whole small planes) at a row pitch P, N the output channels and K the
+input channels.  One TMA box stages a tile's x window (its rows and one
+halo row on each side, from column -1, 128/64/32-byte-swizzled rows of
+64/32/16 channels) once per channel chunk, and all 9 (kh, kw) taps read it
+as views shifted by kh*P + kw positions; TMA's zero fill gives the pads,
+halos and depth edges.  The weights are read per tap in w's own (27, Cin,
+Cout) layout.  ``plan`` decides the tiles, rows, planes, column segments
+and ring depth; the wrapper launches from it and
+``tests/test_torch_conv_plan.py`` replays it in numpy.  f32 input (the
+VAE's f32 output head) runs on a plain FMA kernel.  See the note in the .cu
+file for what bounds it.
 
 Epilogues (``acc`` = conv sum + bias, all in f32):
 
@@ -33,7 +37,8 @@ affine_relu    relu(scale*acc + shift)            K3; VAE output head (f32)
 The same kernel computes K1 run as dx, the input gradient of the conv
 (``icsg3d_tpu/ops/lowc_conv.py:549-567``): a SAME conv of the cotangent
 with spatially flipped, channel-swapped weights and zero bias
-(``conv3d_dx_cuda``).
+(``conv3d_dx_cuda``), which the bf16 kernel reads from w itself (the
+flipped tap's (Cin, Cout) matrix as its K-major B).
 
 Depth modes (K1's ``depth_valid``, lowc_conv.py:224-231, 573-633), for the
 halo-padded slabs of a depth-sharded conv (parallel/halo.py):
@@ -58,6 +63,8 @@ is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Optional
 
@@ -86,6 +93,18 @@ launches_dx_valid = 0
 # reads input planes d + off - 1 .. d + off + 1.
 _DEPTH_OFF = {"same": 0, "valid": 1, "full": -1}
 
+# The H100: streaming multiprocessors (one block of the bf16 kernel each)
+# and the dynamic shared memory a block may ask for (227 KB less 1 KB for
+# the kernel's mbarriers); the kernel's ring and tile limits.
+SMS = 132
+SMEM_MAX = 232_448 - 1024
+MAX_WINDOWS = 4                   # x windows in the ring, at most
+MAX_WEIGHT_STAGES = 8             # weight tiles (one tap each) in the ring
+MAX_MT = 4                        # m64 sub-tiles per block tile
+MAX_BOX = 256                     # TMA box extent per dimension
+_BN_FWD = (64, 128)               # the forward's MN-major B: 64-channel atoms
+_BN_DX = (16, 32, 64, 96, 128)   # 96: Cin 192 in two tiles
+
 _lib = None
 
 
@@ -97,9 +116,9 @@ def reset_launches() -> None:
         launches_valid_by_epilogue[e] = 0
 
 
-def build() -> Path:
+def build(flags=(), verbose: bool = False) -> Path:
     """Compile ``csrc/conv3d.cu`` for sm_90a; returns the library path."""
-    return build_library(SOURCE, "libconv3d")
+    return build_library(SOURCE, "libconv3d", flags, verbose)
 
 
 def load() -> ctypes.CDLL:
@@ -107,16 +126,188 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        fn = lib.conv3d
-        fn.argtypes = (
-            [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 8
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float]
-            + [ctypes.c_void_p]
-        )
-        fn.restype = ctypes.c_int
+        lib.conv3d.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        lib.conv3d_bf16.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21 + [ctypes.c_float, ctypes.c_void_p])
+        lib.conv3d.restype = lib.conv3d_bf16.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """The bf16 kernel's decomposition of one conv launch.
+
+    A (the conv input, or the cotangent for ``dx``) has ``k`` channels,
+    padded to ``k_p`` (a multiple of 8) and read in ``nc`` chunks of ``kc``
+    (16, 32 or 64); the output has ``n`` channels in tiles of ``bn``.  A
+    block tile is ``rows`` rows of ``nd`` planes (nd > 1 only for whole
+    planes) of one column segment of ``seg_w`` columns, at the row pitch
+    ``pitch`` (W + 1 for one segment, seg_w + 2 for several): output
+    position q = (j*(rows + 2) + r)*pitch + c of the tile is plane d0 + j,
+    row h0 + r, column c0 + c, kept where r < rows, c < seg_w and inside
+    the grid.  Its x window, per (kd, chunk), is the box of kc channels x
+    pitch columns from c0 - 1 x (rows + 2) rows from h0 - 1 x nd planes
+    from d0 + off + kd - 1 (zero outside A), laid out at the same pitch;
+    tap (kh, kw) reads it from ``tap_offsets[3*kh + kw]`` = kh*pitch + kw
+    on, for ``mt`` * 64 positions.  Grid: ``blocks`` = m_tiles * n_tiles,
+    the N tile fastest; ``nw`` window and ``nb`` weight stages; ``smem``
+    bytes (the rings, or the f32 accumulator tile the epilogue parks there
+    if larger).
+    """
+
+    B: int
+    D_out: int
+    H: int
+    W: int
+    k: int
+    n: int
+    off: int
+    dx: bool
+    k_p: int
+    kc: int
+    nc: int
+    bn: int
+    mt: int
+    rows: int
+    nd: int
+    seg_w: int
+    pitch: int
+    nw: int
+    nb: int
+    smem: int
+
+    @property
+    def nseg(self) -> int:
+        return _ceil(self.W, self.seg_w)
+
+    @property
+    def row_tiles(self) -> int:
+        return _ceil(self.H, self.rows)
+
+    @property
+    def plane_tiles(self) -> int:
+        return _ceil(self.D_out, self.nd)
+
+    @property
+    def n_tiles(self) -> int:
+        return _ceil(self.n, self.bn)
+
+    @property
+    def m_tiles(self) -> int:
+        return self.B * self.plane_tiles * self.row_tiles * self.nseg
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def tap_offsets(self):
+        return tuple(kh * self.pitch + kw for kh in range(3) for kw in range(3))
+
+    @property
+    def window(self) -> int:
+        """Window positions a tile reads: its mt*64 and the largest tap
+        offset past them."""
+        return self.mt * 64 + 2 * self.pitch + 2
+
+    def tile_origin(self, t: int):
+        """M tile t's (b, d0, h0, c0)."""
+        t, seg = divmod(t, self.nseg)
+        t, rt = divmod(t, self.row_tiles)
+        b, pt = divmod(t, self.plane_tiles)
+        return b, pt * self.nd, rt * self.rows, seg * self.seg_w
+
+
+def _stage_bytes(window: int, kc: int, bn: int):
+    """Ring stages in whole 1024-byte swizzle atoms: an x window of rows of
+    2*kc bytes, and one tap's weight tile of kc x bn."""
+    return _ceil(_ceil(window, 8) * 8 * 2 * kc, 1024) * 1024, _ceil(2 * kc * bn, 1024) * 1024
+
+
+def _step_clocks(mt: int, bn: int, kc: int, xbox: int) -> float:
+    """A rough cost of one tap step of one block, in SM clocks: the larger
+    of the dense bf16 products (4096 flop per clock), wgmma's shared-memory
+    reads (96 bytes per clock) and the step's staged bytes from L2 (64
+    bytes per clock), plus a fixed handoff."""
+    mma = mt * 64 * bn * kc * 2 / 4096
+    smem = mt * (kc // 16) * (2048 + 32 * bn) / 96
+    load = (2 * kc * bn + xbox / 9) / 64
+    return max(mma, smem, load) + 64
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(B: int, D_out: int, H: int, W: int, k: int, n: int, off: int, dx: bool) -> ConvPlan:
+    """The bf16 kernel's launch plan for A (B, D_out + 2*off, H, W, k) to an
+    output (B, D_out, H, W, n).  Takes the fewest column segments that fit
+    a TMA box and shared memory, then the tile (rows, planes, BN) with the
+    least estimated time: block waves over the SMs times the steps of a
+    block (``_step_clocks``).  Never raises for a shape the kernel runs."""
+    k_p = _ceil(k, 8) * 8
+    kc = 16 if k_p <= 16 else 32 if k_p <= 32 else 64
+    nc = _ceil(k_p, kc)
+    choices = _BN_DX if dx else _BN_FWD
+    bns = {next((b for b in choices if b >= min(n, 128)), choices[-1])}
+    bns |= {b for b in choices if 64 <= b < n}
+    for nseg in range(1, W + 1):
+        seg_w = _ceil(W, nseg)
+        if nseg > 1 and _ceil(W, seg_w) != nseg:
+            continue
+        pitch = W + 1 if nseg == 1 else seg_w + 2
+        if pitch > MAX_BOX:
+            continue
+        best = None
+        for rows in range(1, min(H, MAX_BOX - 2) + 1):
+            if rows * pitch > MAX_MT * 64:
+                break
+            whole = rows == H and nseg == 1
+            for nd in range(1, (min(D_out, MAX_BOX) if whole else 1) + 1):
+                mv = nd * (rows + 2) * pitch - 2 * pitch
+                if mv > MAX_MT * 64:
+                    break
+                mt = _ceil(mv, 64)
+                window = mt * 64 + 2 * pitch + 2
+                m_tiles = B * _ceil(D_out, nd) * _ceil(H, rows) * nseg
+                xbox = 2 * kc * pitch * (rows + 2) * nd
+                for bn in sorted(bns):
+                    xs, ws = _stage_bytes(window, kc, bn)
+                    # windows: as many as fit beside 8 (else 2) weight stages
+                    free = SMEM_MAX - 1024
+                    nw = max(2, min(MAX_WINDOWS, (free - MAX_WEIGHT_STAGES * ws) // xs))
+                    nb = min(MAX_WEIGHT_STAGES, (free - nw * xs) // ws)
+                    if nb < 2 or mt * 64 * (bn + 8) * 4 > free:
+                        continue
+                    blocks = m_tiles * _ceil(n, bn)
+                    cost = _ceil(blocks, SMS) * 27 * nc * _step_clocks(mt, bn, kc, xbox)
+                    key = (cost, blocks, -bn)
+                    if best is None or key < best[0]:
+                        park = mt * 64 * (bn + 8) * 4  # the epilogue's f32 tile
+                        smem = max(nw * xs + nb * ws, park) + 1024
+                        best = (key, ConvPlan(B, D_out, H, W, k, n, off,
+                                              bool(dx), k_p, kc, nc, bn, mt, rows, nd,
+                                              seg_w, pitch, nw, nb, smem))
+        if best is not None:
+            return best[1]
+    raise ValueError(f"conv3d: no tile of a row of width {W} fits")  # not reached
+
+
+def describe(a_shape, n: int, dtype: torch.dtype, mode: str = "same",
+             dx: bool = False) -> dict:
+    """What one launch runs, for a report: the path (``wgmma+tma`` or the
+    f32 ``fma`` head) and, for bf16, the plan's tile."""
+    if dtype == torch.float32:
+        return {"path": "fma"}
+    B, D, H, W, k = a_shape
+    off = _DEPTH_OFF[mode]
+    p = plan(B, D - 2 * off, H, W, k, n, off, dx)
+    return {"path": "wgmma+tma", "bn": p.bn, "mt": p.mt, "rows": p.rows, "nd": p.nd,
+            "segments": p.nseg, "kc": p.kc, "nw": p.nw, "nb": p.nb, "smem": p.smem,
+            "blocks": p.blocks}
 
 
 def _check_channels(t: Optional[torch.Tensor], cout: int, name: str, x):
@@ -152,32 +343,57 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor, name: str):
         raise ValueError("x and w must be contiguous")
 
 
-def _launch(x, wt, bias, scale, shift, epilogue, out_dtype, slope, mode="same"):
-    """One kernel launch: x (B,D,H,W,K) conv wt (27, N, K) -> (B,D_out,H,W,N)
-    with D_out = D (``mode`` "same"), D - 2 ("valid") or D + 2 ("full")."""
+def _launch(a, w, bias, scale, shift, epilogue, out_dtype, slope, mode, dx):
+    """One kernel launch: A (B,D,H,W,K) -> (B,D_out,H,W,N) with D_out = D
+    (``mode`` "same"), D - 2 ("valid") or D + 2 ("full"); the forward of w
+    (N = Cout) or, with ``dx``, the input gradient (A the cotangent, N =
+    Cin, the flipped taps)."""
     if out_dtype not in _DTYPE_CODE:
         raise ValueError(f"out_dtype must be float32 or bfloat16, got {out_dtype}")
-    B, D, H, W, k = x.shape
-    n = wt.shape[1]
+    B, D, H, W, k = a.shape
+    cin, cout = w.shape[3], w.shape[4]
+    n = cin if dx else cout
     off = _DEPTH_OFF[mode]
     d_out = D - 2 * off
     if d_out < 1:
         raise ValueError(f"a {mode} conv of {D} planes has no output plane")
     lib = load()
-    out = torch.empty((B, d_out, H, W, n), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
+    out = torch.empty((B, d_out, H, W, n), dtype=out_dtype, device=a.device)
+    sc = scale.data_ptr() if scale is not None else None
+    sh = shift.data_ptr() if shift is not None else None
+    epi = EPILOGUES.index(epilogue)
+    with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.conv3d(
-            x.data_ptr(), wt.data_ptr(), bias.data_ptr(),
-            scale.data_ptr() if scale is not None else None,
-            shift.data_ptr() if shift is not None else None,
-            out.data_ptr(), B, D, d_out, off, H, W, k, n,
-            _DTYPE_CODE[x.dtype], _DTYPE_CODE[out_dtype],
-            EPILOGUES.index(epilogue), float(slope), stream,
-        )
+        if a.dtype == torch.float32:
+            # the FMA kernel reads weights K-contiguous per output channel
+            wt = w.reshape(27, cin, cout)
+            wt = wt.flip(0) if dx else wt.transpose(1, 2)
+            err = lib.conv3d(a.data_ptr(), wt.contiguous().data_ptr(), bias.data_ptr(), sc, sh,
+                             out.data_ptr(), B, D, d_out, off, H, W, k, n,
+                             _DTYPE_CODE[out_dtype], epi, float(slope), stream)
+        else:
+            p = plan(B, d_out, H, W, k, n, off, bool(dx))
+            a = _aligned(_pad_channels(a, p.k_p))
+            wt = _aligned(_pad_channels(w.reshape(27, cin, cout), _ceil(cout, 8) * 8))
+            err = lib.conv3d_bf16(
+                a.data_ptr(), wt.data_ptr(), bias.data_ptr(), sc, sh, out.data_ptr(),
+                B, D, d_out, off, H, W, p.k_p, n, cin, wt.shape[2], int(p.dx), p.kc,
+                p.bn, p.mt, p.rows, p.nd, p.seg_w, p.nw, p.nb,
+                int(out_dtype == torch.float32), epi, float(slope), stream)
     if err != 0:
         raise RuntimeError(f"conv3d kernel launch failed ({mode}): CUDA error {err}")
     return out
+
+
+def _pad_channels(t: torch.Tensor, to: int) -> torch.Tensor:
+    """t with its last dimension zero-padded to ``to`` (16-byte TMA rows)."""
+    return t if t.shape[-1] == to else F.pad(t, (0, to - t.shape[-1]))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it if its storage does not start 16-byte aligned (a
+    TMA tensor map's base must)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def conv3d_same_cuda(
@@ -238,10 +454,8 @@ def _forward(x, w, bias, scale, shift, epilogue, out_dtype, slope, mode, name):
     if epilogue != "bias":
         _check_channels(scale, cout, "scale", x)
         _check_channels(shift, cout, "shift", x)
-    # the kernel reads weights K-contiguous per output channel: (27, Cout, Cin)
-    wt = w.reshape(27, cin, cout).transpose(1, 2).contiguous()
-    return _launch(x, wt, bias, scale, shift, epilogue, out_dtype or x.dtype, slope,
-                   mode)
+    return _launch(x, w, bias, scale, shift, epilogue, out_dtype or x.dtype, slope, mode,
+                   False)
 
 
 def conv3d_dx_cuda(
@@ -253,8 +467,8 @@ def conv3d_dx_cuda(
     Cin, Cout) contiguous in g.dtype.  Returns (B, D, H, W, Cin) in
     ``out_dtype`` (default g.dtype): the same kernel on the flipped,
     channel-swapped weights (``_flip_w``, lowc_conv.py:518-521) with zero
-    bias.  In the kernel's (27, N, K) weight layout those are w's own
-    (27, Cin, Cout) rows in reverse tap order, so no transpose is needed.
+    bias, which the kernel reads from w itself: tap t's weights are w's
+    (Cin, Cout) matrix of tap 26 - t, Cout (its K) contiguous.
     """
     global launches_dx
     out = _dx(g, w, out_dtype, "same", "conv3d_dx_cuda")
@@ -281,9 +495,8 @@ def _dx(g, w, out_dtype, mode, name):
     cin, cout = w.shape[3], w.shape[4]
     if g.shape[4] != cout:
         raise ValueError(f"w has Cout={cout}, g has {g.shape[4]}")
-    wt = w.reshape(27, cin, cout).flip(0).contiguous()
     zero = torch.zeros(cin, dtype=torch.float32, device=g.device)
-    return _launch(g, wt, zero, None, None, "bias", out_dtype or g.dtype, 0.0, mode)
+    return _launch(g, w, zero, None, None, "bias", out_dtype or g.dtype, 0.0, mode, True)
 
 
 def apply_epilogue(y, epilogue, scale=None, shift=None, slope: float = 0.3):

@@ -30,6 +30,7 @@ The split-K ranges run over g's chunks.  Counters: ``launches`` (SAME),
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 from pathlib import Path
@@ -112,6 +113,13 @@ class DwPlan:
     Grid (m_tiles * n_tiles, 3 kd, splits); split s sums chunks
     ``split_ranges[s]`` into its slice of ``ws_elems`` f32 (none when
     ``direct``: one split and no channel padding write dW itself).
+
+    A row too wide for shared memory is split into ``segments`` column
+    segments of ``seg_w`` g columns each; the geometry above is then that
+    of one segment's launch, of width ``W`` = ``seg_w`` + 2: the x segment
+    carries one halo column on each side (zero at the grid's edges) and the
+    g segment is zero in those two columns, so each launch gives the exact
+    dW of its columns and the wrapper sums them in segment order.
     """
 
     B: int
@@ -138,6 +146,8 @@ class DwPlan:
     smem: int
     ws_elems: int
     direct: bool
+    segments: int = 1
+    seg_w: int = 0
 
     @property
     def grid(self):
@@ -180,8 +190,22 @@ def _stage_bytes(x_ch: int, g_ch: int, kc: int, lx: int, tma: bool) -> int:
 @functools.lru_cache(maxsize=1024)
 def plan(B: int, D: int, H: int, W: int, cin: int, cout: int, off: int) -> DwPlan:
     """The bf16 kernel's launch plan for x (B, D + 2*off, H, W, cin) and g
-    (B, D, H, W, cout).  Raises ValueError for a row too wide for shared
-    memory."""
+    (B, D, H, W, cout).  A row too wide for shared memory is split into the
+    fewest column segments whose launches fit (see ``DwPlan``)."""
+    p = _launch_plan(B, D, H, W, cin, cout, off)
+    if p is not None:
+        return dataclasses.replace(p, seg_w=W)
+    for segments in range(2, W + 1):
+        seg_w = _ceil(W, segments)
+        p = _launch_plan(B, D, H, seg_w + 2, cin, cout, off)
+        if p is not None:
+            return dataclasses.replace(p, segments=_ceil(W, seg_w), seg_w=seg_w)
+    raise ValueError(f"conv3d_dw: no column segment of a row of width {W} fits")
+
+
+def _launch_plan(B, D, H, W, cin, cout, off):
+    """One launch's plan at row width W, or None if a row does not fit in
+    shared memory."""
     cin_p, cout_p = _ceil(cin, 8) * 8, _ceil(cout, 8) * 8
     swap = cin_p < 64 and cout_p > cin_p
     m_ch, n_ch = (cout_p, cin_p) if swap else (cin_p, cout_p)
@@ -198,7 +222,7 @@ def plan(B: int, D: int, H: int, W: int, cin: int, cout: int, off: int) -> DwPla
             break
         rows -= 1
     if smem > SMEM_MAX:
-        raise ValueError(f"conv3d_dw: a row of width {W} does not fit in shared memory")
+        return None
     m_tiles, n_tiles = _ceil(m_ch, 64), _ceil(n_ch, bn)
     chunks = B * D * _ceil(H, rows)
     tiles = m_tiles * n_tiles * 3
@@ -310,15 +334,43 @@ def _launch(x, g, off, name):
         else:
             p = plan(B, D, H, W, cin, cout, off)
             xp, gp = _pad_channels(x, p.cin_p), _pad_channels(g, p.cout_p)
-            ws = dw if p.direct else torch.empty(p.ws_elems, dtype=torch.float32,
-                                                 device=x.device)
-            err = lib.conv3d_dw_bf16(
-                xp.data_ptr(), gp.data_ptr(), ws.data_ptr(), dw.data_ptr(),
-                B, D, H, W, p.cin_p, p.cout_p, cin, cout, off, p.rows, p.kc,
-                p.splits, p.per, int(p.swap), p.bn, stream)
+            if p.segments == 1:
+                err = _launch_bf16(lib, p, xp, gp, dw, stream)
+            else:
+                err, total = 0, None
+                for xs, gs in column_segments(xp, gp, p.seg_w):
+                    part = torch.empty_like(dw)
+                    err = err or _launch_bf16(lib, p, xs, gs, part, stream)
+                    total = part if total is None else total.add_(part)
+                dw.copy_(total)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return dw
+
+
+def column_segments(x, g, seg_w: int):
+    """x (.., W, C) and g cut into column segments of ``seg_w`` g columns:
+    each x segment with one halo column on each side (zero at the grid's
+    edges), each g segment zero-padded to the same seg_w + 2 columns (zero
+    in its first and last).  The SAME dW of each pair is exactly the dW of
+    its g columns; their sum over the segments is the whole dW."""
+    F = torch.nn.functional
+    W = g.shape[3]
+    xw = F.pad(x, (0, 0, 1, seg_w + 1))  # x column c at c + 1
+    for c0 in range(0, W, seg_w):
+        n = min(seg_w, W - c0)
+        yield (xw[:, :, :, c0:c0 + seg_w + 2].contiguous(),
+               F.pad(g[:, :, :, c0:c0 + n], (0, 0, 1, seg_w + 1 - n)).contiguous())
+
+
+def _launch_bf16(lib, p: DwPlan, x, g, dw, stream) -> int:
+    """One bf16 launch of plan ``p`` (its row width p.W) into dw."""
+    ws = dw if p.direct else torch.empty(p.ws_elems, dtype=torch.float32, device=x.device)
+    B, D, H, W = g.shape[:4]
+    return lib.conv3d_dw_bf16(
+        x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(),
+        B, D, H, W, p.cin_p, p.cout_p, p.cin, p.cout, p.off, p.rows, p.kc,
+        p.splits, p.per, int(p.swap), p.bn, stream)
 
 
 def conv3d_dw_reference(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

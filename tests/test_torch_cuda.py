@@ -124,7 +124,7 @@ def _rel_err(got, ref):
 DX_CASES = [
     # (B, D, H, W, Cin, Cout, dtype): dx maps g (.., Cout) to (.., Cin)
     (2, 8, 8, 8, 4, 32, torch.bfloat16),     # U-Net conv1: dx out 4 channels
-    (1, 4, 4, 4, 128, 4, torch.bfloat16),    # g of 4 channels: scalar loads
+    (1, 4, 4, 4, 128, 4, torch.bfloat16),    # g of 4 channels: padded to 8
     (2, 4, 6, 5, 64, 72, torch.bfloat16),
     (2, 8, 8, 8, 16, 4, torch.float32),      # the f32 output head
 ]
@@ -180,6 +180,87 @@ def test_dw_kernel_matches_reference_on_card(cuda_device, case):
     assert _rel_err(got, ref) <= 1e-3
     again = kdw.conv3d_dw_cuda(x, gy)
     assert torch.equal(got, again)  # split-K reduction in a fixed order
+
+
+EPI_MODES = [(e, m) for e in ("bias", "affine_leaky", "relu_affine", "affine_relu")
+             for m in ("same", "valid")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(14, 16), (192, 136)], ids=["narrow", "wide"])
+@pytest.mark.parametrize("epi,mode", EPI_MODES, ids=[f"{e}-{m}" for e, m in EPI_MODES])
+def test_bf16_kernel_epilogues_and_depth_modes_on_card(cuda_device, epi, mode, cin, cout):
+    """Every epilogue in both forward depth modes, narrow (Cin 14: channels
+    padded, kc 16) and wide (3 chunks of 64, two N tiles), bf16 and f32
+    output, against the plain version; a second launch gives equal bits."""
+    g = torch.Generator(device="cpu").manual_seed(9)
+    D = 6 if mode == "same" else 8
+    x = torch.randn(2, D, 9, 11, cin, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(3, 3, 3, cin, cout, generator=g) / (27 * cin) ** 0.5).to(
+        cuda_device, torch.bfloat16)
+    b, scale, shift = (torch.randn(cout, generator=g).to(cuda_device) for _ in range(3))
+    run = k.conv3d_same_cuda if mode == "same" else k.conv3d_valid_cuda
+    ref_fn = k.conv3d_same_reference if mode == "same" else k.conv3d_valid_reference
+    for odt in (torch.bfloat16, torch.float32):
+        args = (x, w, b, scale, shift, epi, odt)
+        got = run(*args)
+        torch.cuda.synchronize()
+        ref = ref_fn(*args)
+        assert got.dtype == odt and got.shape == ref.shape == (2, 6, 9, 11, cout)
+        assert _rel_err(got, ref) <= (1e-2 if odt == torch.bfloat16 else 1e-4)
+        assert torch.equal(got, run(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(4, 32), (192, 128)], ids=["narrow", "wide"])
+@pytest.mark.parametrize("mode", ["same", "full"])
+def test_bf16_dx_kernel_depth_modes_on_card(cuda_device, mode, cin, cout):
+    """The input gradient in both depth windows, to a narrow (4) and a wide
+    (192: a 128 and a 64 N tile) Cin, against the plain version; a second
+    launch gives equal bits."""
+    g = torch.Generator(device="cpu").manual_seed(10)
+    gy = torch.randn(2, 6, 7, 10, cout, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(3, 3, 3, cin, cout, generator=g) / (27 * cout) ** 0.5).to(
+        cuda_device, torch.bfloat16)
+    run = k.conv3d_dx_cuda if mode == "same" else k.conv3d_dx_valid_cuda
+    ref_fn = k.conv3d_dx_reference if mode == "same" else k.conv3d_dx_valid_reference
+    got = run(gy, w)
+    torch.cuda.synchronize()
+    ref = ref_fn(gy, w)
+    assert got.shape == ref.shape == (2, 6 if mode == "same" else 8, 7, 10, cin)
+    assert _rel_err(got, ref) <= 1e-2
+    assert torch.equal(got, run(gy, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [128, 300])
+def test_bf16_kernel_wide_rows_on_card(cuda_device, W):
+    """A row of 128 (one segment, pitch 129) and of 300 (column segments):
+    forward and dx against the plain versions."""
+    g = torch.Generator(device="cpu").manual_seed(11)
+    x = torch.randn(1, 3, 4, W, 64, generator=g).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(3, 3, 3, 64, 64, generator=g) / (27 * 64) ** 0.5).to(
+        cuda_device, torch.bfloat16)
+    b = torch.randn(64, generator=g).to(cuda_device)
+    assert k.plan(1, 3, 4, W, 64, 64, 0, False).nseg == (1 if W == 128 else 2)
+    got = k.conv3d_same_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert _rel_err(got, k.conv3d_same_reference(x, w, b)) <= 1e-2
+    assert _rel_err(k.conv3d_dx_cuda(x, w), k.conv3d_dx_reference(x, w)) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_dw_kernel_wide_row_on_card(cuda_device):
+    """K2 at W = 128, 128 -> 128: a row too wide for one launch's window,
+    split into column segments summed in order; equal bits again."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    x = torch.randn(1, 4, 8, 128, 128, generator=g).to(cuda_device, torch.bfloat16)
+    gy = torch.randn(1, 4, 8, 128, 128, generator=g).to(cuda_device, torch.bfloat16)
+    assert kdw.plan(1, 4, 8, 128, 128, 128, 0).segments > 1
+    got = kdw.conv3d_dw_cuda(x, gy)
+    torch.cuda.synchronize()
+    assert _rel_err(got, kdw.conv3d_dw_reference(x, gy)) <= 1e-3
+    assert torch.equal(got, kdw.conv3d_dw_cuda(x, gy))
 
 
 @pytest.mark.cuda

@@ -89,13 +89,31 @@ def test_plan_split_rule_fills_the_card(off):
 
 
 def _replay(x, g, off):
-    """The kernel's arithmetic, in float64 numpy, from ``plan``: per split,
-    per channel tile, per chunk and kd, the staged g chunk and x window,
-    then per tap the window slice at its offset times the chunk; the
-    splits summed in order."""
+    """The wrapper's and the kernel's arithmetic, in float64 numpy, from
+    ``plan``: the column segments (``column_segments``) summed in order,
+    each segment replayed by ``_replay_launch``."""
+    B, D, H, W, cout = g.shape
+    p = kdw.plan(B, D, H, W, x.shape[4], cout, off)
+    if p.segments == 1:
+        return _replay_launch(x, g, off, p)
+    parts = [_replay_launch(xs.numpy(), gs.numpy(), off, p)[0]
+             for xs, gs in kdw.column_segments(torch.from_numpy(x), torch.from_numpy(g),
+                                               p.seg_w)]
+    assert len(parts) == p.segments
+    dw = parts[0]
+    for part in parts[1:]:
+        dw = dw + part
+    return dw, p
+
+
+def _replay_launch(x, g, off, p):
+    """One launch of plan ``p``, in float64 numpy: per split, per channel
+    tile, per chunk and kd, the staged g chunk and x window, then per tap
+    the window slice at its offset times the chunk; the splits summed in
+    order."""
     B, D, H, W, cout = g.shape
     cin = x.shape[4]
-    p = kdw.plan(B, D, H, W, cin, cout, off)
+    assert (B, D, H, W, cin, cout) == (p.B, p.D, p.H, p.W, p.cin, p.cout)
     P, Dx = p.pitch, D + 2 * off
     xp = np.zeros(x.shape[:4] + (p.cin_p,))
     xp[..., :cin] = x
@@ -173,6 +191,35 @@ def test_plan_replay_matches_reference(case, off):
     np.testing.assert_array_equal(got, ref)
 
 
+WIDE_ROW_CASES = [
+    # (B, D of g, H, W, Cin, Cout): rows too wide for one launch's window
+    (1, 2, 2, 112, 128, 128),
+    (1, 2, 2, 128, 128, 128),
+    (1, 2, 3, 112, 192, 128),
+    (1, 2, 2, 128, 192, 128),
+]
+
+
+@pytest.mark.parametrize("off", [0, 1], ids=["same", "valid"])
+@pytest.mark.parametrize("case", WIDE_ROW_CASES, ids=[
+    f"w{c[3]}-{c[4]}x{c[5]}" for c in WIDE_ROW_CASES])
+def test_plan_splits_wide_rows_and_replays_them(case, off):
+    """W >= 112 with both channel sides >= 64: the plan splits the row into
+    column segments (each launch fits shared memory), and the segments'
+    summed replay equals the plain version exactly on small integers."""
+    B, D, H, W, cin, cout = case
+    p = kdw.plan(B, D, H, W, cin, cout, off)
+    assert p.segments >= 2 and p.smem <= kdw.SMEM_MAX and p.tma
+    assert (p.segments - 1) * p.seg_w < W <= p.segments * p.seg_w
+    rng = np.random.default_rng(W + cin + off)
+    x = rng.integers(-3, 4, (B, D + 2 * off, H, W, cin)).astype(np.float32)
+    g = rng.integers(-3, 4, (B, D, H, W, cout)).astype(np.float32)
+    ref_fn = kdw.conv3d_dw_valid_reference if off else kdw.conv3d_dw_reference
+    ref = ref_fn(torch.from_numpy(x), torch.from_numpy(g)).numpy()
+    got, _ = _replay(x.astype(np.float64), g.astype(np.float64), off)
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_plan_splits_a_long_k_and_replays_it():
     """A shape whose plan takes several splits: the fixed-order sum of the
     slices equals the reference."""
@@ -189,7 +236,7 @@ def test_plan_splits_a_long_k_and_replays_it():
 
 def test_plan_roles_and_padding():
     """Small Cin goes on wgmma's N (Cout on M); channels pad to 8; a row
-    too wide for shared memory raises."""
+    too wide for shared memory is split into column segments that fit."""
     p = kdw.plan(10, 32, 32, 32, 4, 32, 0)   # U-Net conv1
     assert p.swap and p.bn == 8 and p.cin_p == 8 and p.m_tiles == 1
     p = kdw.plan(20, 32, 32, 32, 14, 16, 0)  # VAE encoder Conv_0
@@ -198,8 +245,9 @@ def test_plan_roles_and_padding():
     assert not p.swap and p.cout_p == 8 and p.bn == 8 and p.m_tiles == 2
     p = kdw.plan(10, 8, 8, 8, 768, 512, 0)   # U-Net conv9: one split, dW direct
     assert p.direct and p.ws_elems == 0
-    with pytest.raises(ValueError, match="shared memory"):
-        kdw.plan(1, 1, 1, 4000, 64, 64, 0)
+    p = kdw.plan(1, 1, 1, 4000, 64, 64, 0)
+    assert p.segments > 1 and p.W == p.seg_w + 2 and p.smem <= kdw.SMEM_MAX
+    assert (p.segments - 1) * p.seg_w < 4000 <= p.segments * p.seg_w
 
 
 def test_describe_reports_path_and_workspace():
