@@ -25,12 +25,14 @@ Phases (any failure exits nonzero, before the result line):
      library torch.nn.grad.conv3d_weight.  A second launch must give the
      same bits (the split-K sum runs in a fixed order).  Each dW row also
      prints K2's path (``wgmma+tma``, ``wgmma+cp.async``, or the f32 head's
-     ``fma``), bound/kernel, the split-K workspace MB and split count, and
-     the second (split-sum) pass's device ms from one profiled launch.
+     ``fma+slide`` with its tile from ``kernels/conv3d_dw.fma_plan``),
+     bound/kernel, the split-K workspace MB and split count, and the second
+     (split-sum) pass's device ms from one profiled launch.
    Each forward and dx row (and the VALID rows of phase 14) also prints
    the conv kernel's path (``wgmma+tma`` with its tile from
    ``kernels/conv3d.plan``: N tile, m64 sub-tiles, rows x planes, column
-   segments; or the f32 head's ``fma``) and bound/kernel, and at every
+   segments; or the f32 head's ``fma+window`` with its tile from
+   ``kernels/conv3d.fma_plan``) and bound/kernel, and at every
    shape of every pass a second launch must give the same bits (no
    atomics, no split sum in the conv kernel).
    Bound on max|err| / max|ref|: 1e-2 for bf16 outputs, 1e-4 for f32
@@ -56,7 +58,8 @@ Phases (any failure exits nonzero, before the result line):
 7. Train step: the counts of one train step and one eval step alone; ms
    per step by stage (VAE forward, perceptual forwards and loss,
    backward, Adam) and grids/s (CUDA events); one torch.profiler step,
-   with the device ms and launches of each conv kernel in it.
+   with the device ms and launches of each conv kernel in it (bf16 and the
+   f32 head's apart, and K2's split sum).
 8. GPU vs CPU for one train step (batch 2, same weights and noise): loss
    within 2e-2 relative, and the cosine of the first and last VAE conv's
    weight gradients at least 0.95 (bf16 activations and input gradients
@@ -346,53 +349,79 @@ def bound_ms(pas: str, cin: int, cout: int, edge: int, idt: str, odt: str,
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-def dw_launch_report(run, args, off: int):
-    """K2's launch at ``args`` = (x, g): its path (``wgmma+tma``,
-    ``wgmma+cp.async`` or the f32 ``fma`` head), workspace bytes and split
-    count from the launch plan, and the device ms of the main kernel and of
-    the second (split-sum) pass, averaged over three profiled calls."""
+def profiled_ms(run, args, keys) -> dict:
+    """The device ms of one ``run(*args)`` spent in kernels whose names
+    contain each of ``keys``, averaged over three profiled calls.  A
+    session that recorded no event of ``keys[0]`` (the launch's own
+    kernel: a profiled K2 launch has come back without its kernels'
+    events) is profiled again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _attempt in range(3):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                run(*args)
+            sync()
+        dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        if any(keys[0] in e.name for e in dev):
+            break
+    return {key: sum(e.time_range.elapsed_us() for e in dev if key in e.name) / 3e3
+            for key in keys}
+
+
+def dw_launch_report(run, args, off: int):
+    """K2's launch at ``args`` = (x, g): its path (``wgmma+tma``,
+    ``wgmma+cp.async`` or the f32 ``fma+slide``), its tile, workspace bytes
+    and split count from the launch plan, and the device ms of the main
+    kernel and of the second (split-sum) pass, averaged over three profiled
+    calls."""
     from icsg3d_torch.kernels import conv3d_dw as kdw
 
     x, g = args
     info = kdw.describe(tuple(x.shape), tuple(g.shape), x.dtype, off)
-    sync()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            run(*args)
-        sync()
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-           and not getattr(e, "is_user_annotation", False)]
-    info["main_ms"] = sum(e.time_range.elapsed_us() for e in dev
-                          if "conv3d_dw" in e.name) / 3e3
-    info["split_ms"] = sum(e.time_range.elapsed_us() for e in dev
-                           if "reduce_splits" in e.name) / 3e3
+    dev = profiled_ms(run, args, ("conv3d_dw", "reduce_splits"))
+    info["main_ms"], info["split_ms"] = dev["conv3d_dw"], dev["reduce_splits"]
     return info
 
 
 def dw_row_note(info: dict, ms: float, bms: float) -> str:
-    """The K2 columns of a dW row: path, bound share, workspace MB, the
-    split pass's device ms and its share of the profiled launch."""
+    """The K2 columns of a dW row: path (the f32 ``fma+slide`` with its
+    tile: input x output channels per block, g rows per chunk), bound
+    share, the profiled device ms (both passes) and its bound share,
+    workspace MB, the split pass's device ms and its share of the profiled
+    launch."""
     total = info["main_ms"] + info["split_ms"]
-    return (f"  {info['path']:14s} bound/kernel {bms / ms:5.3f} ws "
+    tile = (f" ci{info['ci_t']} co{info['ct']} r{info['rows']}"
+            if info["path"] == "fma+slide" else "")
+    return (f"  {info['path']}{tile:14s} bound/kernel {bms / ms:5.3f} device "
+            f"{total:.4f} ms (bound/device {bms / max(total, 1e-9):5.3f}) ws "
             f"{info['ws_bytes'] / 2 ** 20:5.1f} MB x{info['splits']:<2d} split pass "
             f"{info['split_ms']:.4f} ms ({info['split_ms'] / max(total, 1e-9):5.1%})")
 
 
-def conv_row_note(args, mode: str, dx: bool, ms: float, bms: float) -> str:
-    """The conv3d.cu columns of a forward, dx or VALID row: the path
-    (``wgmma+tma`` with its tile: N tile, m64 sub-tiles, rows x planes,
-    column segments; or the f32 head's ``fma``) and bound/kernel."""
+def conv_row_note(run, args, mode: str, dx: bool, ms: float, bms: float) -> str:
+    """The conv3d.cu columns of a forward, dx or VALID row: the path and its
+    tile (``wgmma+tma``: N tile, m64 sub-tiles, rows x planes, column
+    segments; the f32 ``fma+window``: rows and N channels per block,
+    column segments, channels per staged chunk) and
+    bound/kernel; for the f32 path also the profiled device ms of
+    ``run(*args)`` and its bound share (the event time of such a short
+    launch includes the host's launch overhead)."""
     from icsg3d_torch.kernels import conv3d as k
 
     a, w = args[0], args[1]
     n = w.shape[3] if dx else w.shape[4]
     d = k.describe(tuple(a.shape), n, a.dtype, mode, dx)
-    tile = (f" n{d['bn']} m{d['mt']} {d['rows']}x{d['nd']} s{d['segments']}"
-            if d["path"] != "fma" else "")
-    return f"  {d['path']}{tile} bound/kernel {bms / ms:5.3f}"
+    if d["path"] != "fma+window":
+        tile = f" n{d['bn']} m{d['mt']} {d['rows']}x{d['nd']} s{d['segments']}"
+        return f"  {d['path']}{tile} bound/kernel {bms / ms:5.3f}"
+    dev = profiled_ms(run, args, ("conv3d_f32_kernel",))["conv3d_f32_kernel"]
+    tile = f" r{d['rows']} n{d['bn']} s{d['segments']} kc{d['kc']}"
+    return (f"  {d['path']}{tile} bound/kernel {bms / ms:5.3f} device {dev:.4f} ms "
+            f"(bound/device {bms / max(dev, 1e-9):5.3f})")
 
 
 def pass_summary(mine) -> str:
@@ -454,7 +483,7 @@ def phase_kernels(card: str, shapes, batch: int):
         print(f"  {model:12s} {cin:4d}->{cout:<4d}@{edge:<3d} {epi:13s} {odt:4s} "
               f"{abs_err:11.3e} {rel_err:9.2e} {ms:10.4f} {plain_ms:9.4f} "
               f"{cudnn_ms:9.4f} {bms:9.4f} {bby}"
-              f"{conv_row_note(args, 'same', False, ms, bms)}")
+              f"{conv_row_note(k.conv3d_same_cuda, args, 'same', False, ms, bms)}")
         rows.append(dict(model=model, cin=cin, cout=cout, edge=edge, epilogue=epi,
                          batch=batch, abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                          library_ms=cudnn_ms, bound_ms=bms, bound_by=bby,
@@ -524,7 +553,7 @@ def phase_backward_kernels(card: str, sets):
             library_ms = cuda_median_ms(library)
             bms, bby = bound_ms(pas, cin, cout, edge, idt, idt, batch)
             note = (dw_row_note(dw_launch_report(run, args, 0), ms, bms) if pas == "dw"
-                    else conv_row_note(args, "same", True, ms, bms))
+                    else conv_row_note(run, args, "same", True, ms, bms))
             print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} {idt:4s} "
                   f"{abs_err:11.3e} {rel_err:8.2e} {bound:6g} {ms:10.4f} "
                   f"{plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}{note}")
@@ -1349,8 +1378,10 @@ def profile_step(fn, step_ms: float, tag: str, card: str):
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]:
         print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
     for label, key in (("forward/dx kernel conv3d.cu, bf16", "conv3d_wgmma_kernel"),
-                       ("forward/dx kernel conv3d.cu, f32 head", "conv3d_fma_kernel"),
-                       ("weight-gradient kernel conv3d_dw.cu", "conv3d_dw_")):
+                       ("forward/dx kernel conv3d.cu, f32 head", "conv3d_f32_kernel"),
+                       ("weight-gradient kernel conv3d_dw.cu, bf16", "conv3d_dw_wgmma_kernel"),
+                       ("weight-gradient kernel conv3d_dw.cu, f32 head", "conv3d_dw_f32_kernel"),
+                       ("weight-gradient split sum conv3d_dw.cu", "reduce_splits_kernel")):
         mine = [(ms, n) for name, (ms, n) in by_name.items() if key in name]
         print(f"  [{tag}] {label}: {sum(m for m, _ in mine):.3f} ms over "
               f"{sum(n for _, n in mine)} launches")
@@ -1473,8 +1504,8 @@ def phase_valid_kernels(card: str, sets, same_rows):
             if pas == "dw":
                 note = dw_row_note(dw_launch_report(run, args, 1), ms, bms)
             else:
-                note = conv_row_note(args, "valid" if pas == "fwd" else "full", pas == "dx",
-                                     ms, bms)
+                note = conv_row_note(run, args, "valid" if pas == "fwd" else "full",
+                                     pas == "dx", ms, bms)
             print(f"  {pas:4s} {name:15s} {batch:3d} {cin:4d}->{cout:<4d}@{edge:<3d} "
                   f"{d:3d}+2 {idt:4s} {abs_err:11.3e} {rel_err:8.2e} {bound:6g} "
                   f"{ms:10.4f} {plain_ms:9.4f} {library_ms:11.4f} {bms:9.4f} {bby}{note}")

@@ -75,8 +75,14 @@
 //    the single store.  No atomics, no split K: two launches give the same
 //    bits.
 //
-// f32 input (the VAE's f32 output head) runs on a plain f32 FMA kernel, with
-// a 16-channel-wide tile for Cout <= 16.  Output bf16 or f32.
+// f32 input (the VAE's f32 output head, 16 -> 4 at 32^3) runs on the f32
+// window kernel below (conv3d_f32_kernel): exact f32 FMAs on the CUDA cores,
+// since the head is held to 1e-4 and TF32 keeps three digits.  At the head
+// the conv does 2*27*16*4 flop per 80 bytes of x and y, so the ceiling is
+// the f32 FMA rate (66.9 TFLOP/s: 0.034 ms at batch 20), not the memory
+// (0.016 ms); the kernel reuses each staged window value across the three
+// kh taps in registers and each weight across a thread's RT rows.  Output
+// bf16 or f32, every epilogue, every depth window.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (icsg3d_torch/kernels/conv3d.py does this).
@@ -615,141 +621,207 @@ bool tensor_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* 
 }
 
 // ---------------------------------------------------------------------------
-// f32 FMA kernel (the VAE's f32 output head)
+// f32 window kernel (the VAE's f32 output head; any f32 conv)
+//
+// Exact f32 products on the CUDA cores (no TF32: the head is held to 1e-4
+// of its plain version).  A block computes one output tile: R rows x Ws
+// columns of one (b, d) plane x BN output channels.  Per chunk of kc input
+// channels (4, 8, 16 or 32) it stages, once, the tile's x window -- 3
+// planes x (R + 2) rows x (Ws + 2) columns x kc channels, zero outside A
+// (pads, halo rows, depth edges, channels past K) -- as
+// [plane][row][column][channel] at a column stride CS (kc, or kc + 4 from
+// 8 on, so that a warp's 16-byte reads of 32 neighbouring columns hit
+// distinct banks), by cp.async with its zero fill (16 bytes a copy when K
+// is a multiple of 4), every copy in flight before one wait; and the
+// chunk's weights as [tap][channel][BN] straight from w's own (27, Cin,
+// Cout) layout (dx reads the flipped tap, w[26 - tap][n][k], by index: no
+// transposed or flipped copy).  A thread owns one column, RT = 4
+// consecutive rows and CT = 4 output channels: for each (kd, 4 channels,
+// kw) it loads the RT + 2 window float4s of its column once and uses them
+// for the three kh taps, with the weights as warp-uniform float4
+// broadcasts: 12*RT*CT = 192 FMAs for RT + 2 + 3*CT = 18 shared loads.
+// (Tiles of 8 rows or 8-16 channels a thread take 127-128 registers, and
+// none was clearly faster at the head's shapes on the H100.)
+// No atomics and no split sum: two launches give the same bits.  The tile (row groups, channel groups, Ws, kc) comes
+// from icsg3d_torch/kernels/conv3d.py::fma_plan; the entry checks it.
 
-constexpr int NT = 256;  // threads per block (8 warps)
-constexpr int BM = 128;  // voxels per block tile
-constexpr int BK = 32;   // reduction chunk
+constexpr int FT_MAX = 256;  // threads per block, at most
+constexpr int RT = 4;        // rows a thread owns
+constexpr int CT = 4;        // output channels a thread owns
 
-// Rows past M get this input plane, which every tap reads as outside.
-constexpr short kPastM = -32000;
-
-// Per-block coordinates of the BM output rows: the input voxel each reads at
-// tap (0,0,0), and its input plane d + off (kPastM past M) and (h, w).
-struct RowInfo {
-  int vox[BM];
-  short d[BM], h[BM], w[BM];
-
-  __device__ void fill(int m0, int M, int D_out, int D_in, int off, int H, int W) {
-    for (int r = threadIdx.x; r < BM; r += NT) {
-      const int m = m0 + r;
-      const int q = m / W, ww = m - q * W;
-      const int p = q / H, hh = q - p * H;
-      const int b = p / D_out, d0 = p - b * D_out + off;
-      vox[r] = ((b * D_in + d0) * H + hh) * W + ww;
-      d[r] = m < M ? (short)d0 : kPastM;
-      h[r] = (short)hh;
-      w[r] = (short)ww;
-    }
-  }
-  // The input voxel row r reads at tap offset (kd, kh, kw), or -1 outside
-  // the input (or past M).
-  __device__ __forceinline__ int src(int r, int kd, int kh, int kw, int delta,
-                                     int D_in, int H, int W) const {
-    const int dd = d[r] + kd, hh = h[r] + kh, ww = w[r] + kw;
-    const bool in = dd >= 0 && dd < D_in && hh >= 0 && hh < H && ww >= 0 && ww < W;
-    return in ? vox[r] + delta : -1;
-  }
+struct FGeom {
+  int D_in, D_out, off, H, W, K, N, w_cin, w_cout, dx;
+  int R, RG, Ws, P, kc, lkc, CS, BN, nseg, row_tiles, vec, epi;
+  int row_elems;         // copies per window row: P*kc/4 with vec, else P*kc
+  float slope;
+  float inv_row, inv_rows, inv_bn;  // reciprocals of row_elems, R + 2, BN
 };
 
-// f32 FMA kernel: 16 x 16 threads, each 8 voxels x TN channels strided by
-// 16, so a block covers BM voxels x 16*TN channels (TN = 1 for Cout <= 16,
-// the VAE's 16->4 output head).  K = 27*Cin is walked flat.
-
-template <typename TOut, int TN>
-__global__ void __launch_bounds__(NT)
-conv3d_fma_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                  const float* __restrict__ bias, const float* __restrict__ scale,
-                  const float* __restrict__ shift, TOut* __restrict__ out,
-                  int B, int D_in, int D_out, int off, int H, int W, int Cin, int Cout,
-                  int epi, float slope) {
-  constexpr int FBN = 16 * TN;
-  __shared__ float sA[BM][BK + 1];   // [voxel][k]
-  __shared__ float sB[FBN][BK + 1];  // [cout][k]
-  __shared__ RowInfo rows;
-
-  const int M = B * D_out * H * W;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * FBN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  rows.fill(m0, M, D_out, D_in, off, H, W);
-  __syncthreads();
-
-  float acc[8][TN];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  const int nk = (27 * Cin + BK - 1) / BK;
-  for (int ks = 0; ks < nk; ++ks) {
-    // every thread keeps one k column (NT % BK == 0): one (tap, ci) per step
-    const int k = tid % BK, kf = ks * BK + k;
-    const int tap = kf / Cin, ci = kf - tap * Cin;
-    const bool kok = kf < 27 * Cin;
-    const int kd = tap / 9 - 1, kh = (tap / 3) % 3 - 1, kw = tap % 3 - 1;
-    const int delta = (kd * H + kh) * W + kw;
-#pragma unroll 4
-    for (int i = 0; i < BM * BK / NT; ++i) {
-      const int r = (tid + i * NT) / BK;
-      const int s = kok ? rows.src(r, kd, kh, kw, delta, D_in, H, W) : -1;
-      sA[r][k] = s >= 0 ? x[(long long)s * Cin + ci] : 0.f;
-    }
-    for (int n = tid / BK; n < FBN; n += NT / BK) {
-      const int co = n0 + n;
-      sB[n][k] = kok && co < Cout ? wt[((long long)tap * Cout + co) * Cin + ci] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[8], b[TN];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = sA[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = sB[tx + 16 * j][kk];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int m = m0 + ty + 16 * i;
-      const int co = n0 + tx + 16 * j;
-      if (m < M && co < Cout)
-        out[(long long)m * Cout + co] =
-            from_float<TOut>(epilogue(acc[i][j], co, bias, scale, shift, epi, slope));
-    }
+// a / b for 0 <= a < 2^21, from inv = 1/b: floor((a + 0.5) * inv) is exact
+// there (the product's error, below (a + 0.5)/b * 2^-23, stays under the
+// 0.5/b margin to the next integer).  No integer division in the staging.
+__device__ __forceinline__ int fdiv(int a, float inv) {
+  return __float2int_rz((static_cast<float>(a) + 0.5f) * inv);
 }
 
-// The depth geometry of one launch (see the note at the top).
-struct Depth {
-  int d_in, d_out, off;
-};
+// cp.async of 16 or 4 bytes; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void f32_cp_async16(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void f32_cp_async4(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+template <int Q> __device__ __forceinline__ float lane_of(const float4& v) {
+  return Q == 0 ? v.x : Q == 1 ? v.y : Q == 2 ? v.z : v.w;
+}
+
+// acc[i][j] += x[i + KH][Q] * w[j] over a thread's RT rows and CT
+// channels, w the CT weights of channel Q at wq (a float4 broadcast).
+template <int KH, int Q>
+__device__ __forceinline__ void f32_tap(float (&acc)[RT][CT], const float4 (&xv)[RT + 2],
+                                        const float* wq) {
+  const float4 t = *reinterpret_cast<const float4*>(wq);
+  const float wv[CT] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const float xi = lane_of<Q>(xv[i + KH]);
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = fmaf(xi, wv[j], acc[i][j]);
+  }
+}
+
+// One (kd, kh, kw) tap over 4 input channels: wt the tap's [4][BN] weights.
+template <int KH>
+__device__ __forceinline__ void f32_tap4(float (&acc)[RT][CT], const float4 (&xv)[RT + 2],
+                                         const float* wt, int bn) {
+  f32_tap<KH, 0>(acc, xv, wt);
+  f32_tap<KH, 1>(acc, xv, wt + bn);
+  f32_tap<KH, 2>(acc, xv, wt + 2 * bn);
+  f32_tap<KH, 3>(acc, xv, wt + 3 * bn);
+}
 
 template <typename TOut>
-void launch_fma(const void* x, const void* wt, const float* bias, const float* scale,
-                const float* shift, void* out, int B, Depth dp, int H, int W, int Cin,
-                int Cout, int epi, float slope, cudaStream_t stream) {
-  const long long M = (long long)B * dp.d_out * H * W;
-  const unsigned mt = (unsigned)((M + BM - 1) / BM);
-  auto xf = static_cast<const float*>(x);
-  auto wf = static_cast<const float*>(wt);
-  auto o = static_cast<TOut*>(out);
-  if (Cout <= 16)
-    conv3d_fma_kernel<TOut, 1><<<dim3(mt, (Cout + 15) / 16), NT, 0, stream>>>(
-        xf, wf, bias, scale, shift, o, B, dp.d_in, dp.d_out, dp.off, H, W, Cin, Cout, epi,
-        slope);
-  else
-    conv3d_fma_kernel<TOut, 4><<<dim3(mt, (Cout + 63) / 64), NT, 0, stream>>>(
-        xf, wf, bias, scale, shift, o, B, dp.d_in, dp.d_out, dp.off, H, W, Cin, Cout, epi,
-        slope);
+__global__ void __launch_bounds__(FT_MAX)
+conv3d_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                  const float* __restrict__ bias, const float* __restrict__ scale,
+                  const float* __restrict__ shift, TOut* __restrict__ out, const FGeom p) {
+  extern __shared__ __align__(16) float fsm[];
+  float* wsm = fsm;                         // [27][kc][BN]
+  float* xsm = fsm + 27 * p.kc * p.BN;      // [3][R + 2][P][CS]
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int rows = p.R + 2;
+  const int cs4 = p.CS >> 2, rs4 = p.P * cs4;  // float4s per column, per window row
+
+  // block -> (b, d, row tile, column segment); blockIdx.y -> N tile
+  int t = blockIdx.x;
+  const int seg = t % p.nseg;
+  t /= p.nseg;
+  const int rtile = t % p.row_tiles;
+  t /= p.row_tiles;
+  const int d = t % p.D_out, b = t / p.D_out;
+  const int h0 = rtile * p.R, c0 = seg * p.Ws, n0 = blockIdx.y * p.BN;
+  // thread -> (column, first of its RT rows, channel group)
+  const int c = tid % p.Ws, u = tid / p.Ws;
+  const int r0 = (u % p.RG) * RT, grp = u / p.RG;
+
+  float acc[RT][CT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < p.K; k0 += p.kc) {
+    // the x window: every copy issued, then one wait
+    const int total = 3 * rows * p.row_elems;
+    for (int i = tid; i < total; i += T) {
+      const int pr = fdiv(i, p.inv_row), e = i - pr * p.row_elems;
+      const int kd = fdiv(pr, p.inv_rows), r = pr - kd * rows;
+      int j, ci;
+      if (p.vec) {
+        j = e >> (p.lkc - 2);
+        ci = (e & ((p.kc >> 2) - 1)) << 2;
+      } else {
+        j = e >> p.lkc;
+        ci = e & (p.kc - 1);
+      }
+      const int dd = d + p.off + kd - 1, hh = h0 - 1 + r, cc = c0 - 1 + j, kk = k0 + ci;
+      const bool in = dd >= 0 && dd < p.D_in && hh >= 0 && hh < p.H && cc >= 0 && cc < p.W &&
+                      kk < p.K;
+      const float* src =
+          in ? x + ((((size_t)b * p.D_in + dd) * p.H + hh) * p.W + cc) * p.K + kk : x;
+      const unsigned dst = smem_addr(xsm + (pr * p.P + j) * p.CS + ci);
+      if (p.vec)
+        f32_cp_async16(dst, src, in ? 16 : 0);
+      else
+        f32_cp_async4(dst, src, in ? 4 : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    // the chunk's weights: B[tap][ci][n] = w[tap][k0 + ci][n0 + n] (forward)
+    // or w[26 - tap][n0 + n][k0 + ci] (dx), zero past K and N
+    const int wn = 27 * p.kc * p.BN;
+    for (int i = tid; i < wn; i += T) {
+      const int q = fdiv(i, p.inv_bn), n = i - q * p.BN;
+      const int ci = q & (p.kc - 1), tap = q >> p.lkc;
+      const int kk = k0 + ci, nn = n0 + n;
+      float v = 0.f;
+      if (kk < p.K && nn < p.N)
+        v = p.dx ? __ldg(w + ((26 - tap) * p.w_cin + nn) * p.w_cout + kk)
+                 : __ldg(w + (tap * p.w_cin + kk) * p.w_cout + nn);
+      wsm[i] = v;
+    }
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();
+
+    const int kn4 = (min(p.kc, p.K - k0) + 3) >> 2;
+    const float4* xw = reinterpret_cast<const float4*>(xsm);
+    for (int kd = 0; kd < 3; ++kd) {
+      for (int c4 = 0; c4 < kn4; ++c4) {
+        const float4* xc = xw + (kd * rows + r0) * rs4 + c * cs4 + c4;
+        const float* wc = wsm + (kd * 9 * p.kc + 4 * c4) * p.BN + grp * CT;
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          float4 xv[RT + 2];
+#pragma unroll
+          for (int i = 0; i < RT + 2; ++i) xv[i] = xc[i * rs4 + kw * cs4];
+          const int tap = p.kc * p.BN;  // floats per tap
+          f32_tap4<0>(acc, xv, wc + kw * tap, p.BN);
+          f32_tap4<1>(acc, xv, wc + (3 + kw) * tap, p.BN);
+          f32_tap4<2>(acc, xv, wc + (6 + kw) * tap, p.BN);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int cc = c0 + c;
+  if (cc >= p.W) return;
+#pragma unroll
+  for (int i = 0; i < RT; ++i) {
+    const int hh = h0 + r0 + i;
+    if (hh >= p.H) break;
+    TOut* o = out + ((((size_t)b * p.D_out + d) * p.H + hh) * p.W + cc) * p.N;
+#pragma unroll
+    for (int j = 0; j < CT; ++j) {
+      const int n = n0 + grp * CT + j;
+      if (n < p.N)
+        o[n] = from_float<TOut>(epilogue(acc[i][j], n, bias, scale, shift, p.epi, p.slope));
+    }
+  }
+}
+
+template <typename TOut>
+cudaError_t launch_f32(const float* x, const float* w, const float* bias, const float* scale,
+                       const float* shift, void* out, const FGeom& p, dim3 grid,
+                       int threads, int smem, cudaStream_t s) {
+  auto kern = conv3d_f32_kernel<TOut>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, threads, smem, s>>>(x, w, bias, scale, shift, static_cast<TOut*>(out), p);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -842,35 +914,61 @@ extern "C" int conv3d_bf16(const void* a, const void* w, const void* bias, const
   return (int)err;
 }
 
-// f32: x (B, D_in, H, W, Cin); wt: (27, Cout, Cin) f32; bias, scale, shift:
-// (Cout,) f32; out: (B, D_out, H, W, Cout) f32 (out_dtype 0) or bf16 (1).
-// off is the depth offset of the window: 0 (SAME, D_in = D_out), +1 (VALID,
-// D_in = D_out + 2) or -1 (full, D_in = D_out - 2).  epi: see Epilogue;
+// f32: a (B, D_in, H, W, K) the conv input (forward) or the cotangent (dx);
+// w (3, 3, 3, w_cin, w_cout) f32 in its own layout; bias, scale, shift:
+// (N,) f32; out (B, D_out, H, W, N), N = w_cout (forward, K = w_cin) or
+// w_cin (dx, K = w_cout), f32 (out_f32 1) or bf16 (0).  off as in
+// ``conv3d_bf16``.  The tile of icsg3d_torch/kernels/conv3d.py::fma_plan:
+// rg row groups and ng channel groups per block, seg_w columns per
+// segment, kc channels per staged chunk (4, 8, 16 or 32); at most
+// 256 threads (seg_w * rg * ng) and SMEM_MAX bytes.  epi: see Epilogue;
 // scale and shift may be null for epi == 0.  Returns cudaGetLastError()
-// after the launch (0 = launched).  Allocates nothing and does not
-// synchronise.
-extern "C" int conv3d(const void* x, const void* wt, const void* bias, const void* scale,
-                      const void* shift, void* out, int B, int D_in, int D_out, int off,
-                      int H, int W, int Cin, int Cout, int out_dtype, int epi, float slope,
-                      void* stream) {
-  const long long M_out = (long long)B * D_out * H * W;
-  // the row decode runs up to BM rows and one plane past the larger grid
-  const long long M_in = (long long)B * (D_in + 2) * H * W + BM;
+// after the launch (0 = launched); cudaErrorInvalidValue for a tile or
+// shape it does not take.  Allocates nothing and does not synchronise.
+extern "C" int conv3d_f32(const void* a, const void* w, const void* bias, const void* scale,
+                          const void* shift, void* out, int B, int D_in, int D_out, int off,
+                          int H, int W, int K, int N, int w_cin, int w_cout, int dx, int rg,
+                          int ng, int seg_w, int kc, int out_f32, int epi,
+                          float slope, void* stream) {
+  int lkc = 0;
+  while (lkc < 6 && (1 << lkc) < kc) ++lkc;
+  const long long threads = (long long)seg_w * rg * ng;
   if (B <= 0 || D_out <= 0 || D_in <= 0 || H <= 0 || W <= 0 || off < -1 || off > 1 ||
-      D_in != D_out + 2 * off || D_in > 16000 || D_out > 16000 || H > 16000 ||
-      W > 16000 || M_out >= (1LL << 31) || M_in >= (1LL << 31) || Cin <= 0 ||
-      Cout <= 0 || epi < 0 || epi > 3 || ((epi != 0) && (!scale || !shift)))
+      D_in != D_out + 2 * off || K <= 0 || N <= 0 ||
+      (dx ? (N != w_cin || K != w_cout) : (K != w_cin || N != w_cout)) ||
+      (long long)B * D_in * H * W * K >= (1LL << 31) ||
+      (long long)B * D_out * H * W * N >= (1LL << 31) || kc < 4 || kc > 32 ||
+      (1 << lkc) != kc || rg < 1 || ng < 1 || seg_w < 1 || seg_w > W || threads > FT_MAX ||
+      epi < 0 || epi > 3 || (epi != 0 && (!scale || !shift)))
     return (int)cudaErrorInvalidValue;
-  const float* b = static_cast<const float*>(bias);
+  FGeom p;
+  p.D_in = D_in; p.D_out = D_out; p.off = off; p.H = H; p.W = W; p.K = K; p.N = N;
+  p.w_cin = w_cin; p.w_cout = w_cout; p.dx = dx ? 1 : 0;
+  p.R = RT * rg; p.RG = rg; p.Ws = seg_w; p.P = seg_w + 2; p.kc = kc; p.lkc = lkc;
+  p.CS = kc == 4 ? 4 : kc + 4;
+  p.BN = CT * ng; p.nseg = (W + seg_w - 1) / seg_w; p.row_tiles = (H + p.R - 1) / p.R;
+  p.vec = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  p.row_elems = p.P * kc / (p.vec ? 4 : 1);
+  p.epi = epi; p.slope = slope;
+  p.inv_row = 1.f / p.row_elems; p.inv_rows = 1.f / (p.R + 2); p.inv_bn = 1.f / p.BN;
+  const long long wfl = 27LL * kc * p.BN, xfl = 3LL * (p.R + 2) * p.P * p.CS;
+  const long long smem = 4 * (wfl + xfl);
+  const long long grid = (long long)B * D_out * p.row_tiles * p.nseg;
+  const long long n_tiles = (N + p.BN - 1) / p.BN;
+  // the staging decode (fdiv) is exact below 2^21 elements
+  if (smem > SMEM_MAX || wfl >= (1 << 21) || 3 * (p.R + 2) * (long long)p.row_elems >= (1 << 21) ||
+      grid >= (1LL << 31) || n_tiles > 65535)
+    return (int)cudaErrorInvalidValue;
+  const float* af = static_cast<const float*>(a);
+  const float* wf = static_cast<const float*>(w);
+  const float* bs = static_cast<const float*>(bias);
   const float* sc = static_cast<const float*>(scale);
   const float* sh = static_cast<const float*>(shift);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Depth dp{D_in, D_out, off};
-  if (out_dtype == 0)
-    launch_fma<float>(x, wt, b, sc, sh, out, B, dp, H, W, Cin, Cout, epi, slope, s);
-  else if (out_dtype == 1)
-    launch_fma<__nv_bfloat16>(x, wt, b, sc, sh, out, B, dp, H, W, Cin, Cout, epi, slope, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const dim3 g((unsigned)grid, (unsigned)n_tiles);
+  const cudaError_t err =
+      out_f32 ? launch_f32<float>(af, wf, bs, sc, sh, out, p, g, (int)threads, (int)smem, s)
+              : launch_f32<__nv_bfloat16>(af, wf, bs, sc, sh, out, p, g, (int)threads,
+                                          (int)smem, s);
+  return (int)err;
 }

@@ -70,8 +70,12 @@
 //    minimises an estimate of block waves times chunks per block plus the
 //    workspace traffic, with the workspace at most 32 MB; one split without
 //    channel padding writes dW directly.
-// The f32 output head (x 16 channels, g 4 channels) runs on an f32 FMA
-// kernel with the same split-K structure over voxels.
+// f32 operands (the VAE's output head: x 16 channels, g 4, at 32^3) run on
+// the f32 sliding-window kernel below: exact f32 FMAs on the CUDA cores
+// (TF32 would miss the 1e-3 bound), bound at the head by the f32 FMA rate
+// (2*27*16*4 flop per voxel: 0.034 ms at batch 20 at 66.9 TFLOP/s), so it
+// stages each chunk's x window once and reuses every x value across the
+// three kw taps in registers; split-K over chunks as above.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (icsg3d_torch/kernels/conv3d_dw.py does this).
@@ -449,77 +453,176 @@ bool tensor_map(CUtensorMap* map, const void* base, int B, int Dn, int H, int W,
 }
 
 // ---------------------------------------------------------------------------
-// f32 FMA kernel (the f32 output head): TX column threads x (NT / TX) row
-// threads, 4 rows each, so a block tile is (4 * NT / TX) rows x TX channels
-// (TX = 4 for Cout <= 4, the VAE's 16->4 output head; 16 otherwise).
+// f32 sliding-window kernel (the f32 output head: x 16 channels, g 4; any
+// f32 (Cin, Cout)).  Exact f32 products on the CUDA cores, no TF32.
+//
+// A block owns a tile of CI input channels x CT output channels and walks
+// its split's chunks in order; a chunk is R g rows of one (b, d) plane.
+// Per chunk it stages, once, the x window -- 3 planes (d + off - 1 ..) x
+// (R + 2) rows (from h0 - 1) x (W + 2) columns (from -1) x CI channels,
+// zero outside x, as [plane][row][column][channel] at padded strides XR
+// (row) and PS (plane) -- and the g tile, [row][column][CT channels], by
+// cp.async into one of two stages, so the next chunk loads while this one
+// is summed.  The staging decodes its indices with float reciprocals
+// (fdiv): no integer division, no 64-bit arithmetic per element.  Thread (kd, kh, ci) keeps
+// 3 kw x CT accumulators and walks each g row with a sliding window of
+// three x values in registers: per position one x load (lanes on
+// consecutive channels; XR = CI and PS = 3*CI mod 32 make the 9 (kd, kh)
+// groups of a warp hit distinct banks) and CT/4 float4 broadcasts of g
+// feed 3*CT FMAs (12 for 2 loads at the head).  Split s writes its own
+// slice of the workspace (or dW itself when there is one split), and
+// reduce_splits_kernel sums the slices in split order: the same bits on
+// every run.  The tile, R and the splits come from
+// icsg3d_torch/kernels/conv3d_dw.py::fma_plan; the entry checks them.
 
-constexpr int NT = 128;
-constexpr int BK = 32;  // voxels per step
+constexpr int FT_MAX = 576;  // threads per block, at most (9 x 64 channels)
 
-// The x voxel that voxel v of g's (B, D, H, W) grid reads at tap (0..26),
-// with x's planes offset by ``off`` (x has D + 2*off planes), or -1 outside
-// x (or past the block's voxel range, v >= vend).
-__device__ __forceinline__ long long shifted(long long v, long long vend, int tap,
-                                             int D, int H, int W, int off) {
-  if (v >= vend) return -1;
-  const int kd = tap / 9 - 1, kh = (tap / 3) % 3 - 1, kw = tap % 3 - 1;
-  const long long hw = (long long)W * H, q = v / hw;
-  const long long b = q / D;
-  const int w = (int)(v % W), h = (int)((v / W) % H), d = (int)(q - b * D);
-  const int dd = d + off + kd, hh = h + kh, ww = w + kw;
-  if (dd < 0 || dd >= D + 2 * off || hh < 0 || hh >= H || ww < 0 || ww >= W) return -1;
-  // x's index: ((b*(D + 2*off) + dd)*H + hh)*W + ww
-  return v + ((long long)kd * H + kh) * W + kw + off * (2 * b + 1) * hw;
+struct FGeom {
+  int D, H, W, Cin, Cout, off, Dx;
+  int CI, R, RB, XR, PS, SB, nchunks, per, ci_tiles, vx, vg;
+  int xrow, civ, ctv;                        // staged loads per x row, per column; per g column
+  float inv_xrow, inv_rows, inv_civ, inv_ctv, inv_W;
+};
+
+// a / b for 0 <= a < 2^21, from inv = 1/b: floor((a + 0.5) * inv) is exact
+// there (the product's error, below (a + 0.5)/b * 2^-23, stays under the
+// 0.5/b margin to the next integer).
+__device__ __forceinline__ int fdiv(int a, float inv) {
+  return __float2int_rz((static_cast<float>(a) + 0.5f) * inv);
 }
 
-template <int TX>
-__global__ void __launch_bounds__(NT)
-conv3d_dw_fma_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                     float* __restrict__ ws, int B, int D, int H, int W, int Cin, int Cout,
-                     int off, long long chunk) {
-  constexpr int TY = NT / TX, FBM = 4 * TY;
-  __shared__ float sA[BK][FBM];
-  __shared__ float sB[BK][TX];
+__device__ __forceinline__ void cp_async4(unsigned dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
 
-  const int M = 27 * Cin;
-  const long long K = (long long)B * D * H * W;
-  const int m0 = blockIdx.x * FBM;
-  const int n0 = blockIdx.y * TX;
-  const long long vbeg = (long long)blockIdx.z * chunk;
-  const long long vend = vbeg + chunk < K ? vbeg + chunk : K;
-  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+// Stage chunk cidx into one buffer: g tile [R][W][CT] at gsm, x window
+// [3][R + 2][W + 2][CI] at strides PS, XR at xsm, by cp.async (16 bytes
+// with vx / vg 4, else 4), zero-filled outside x and g.
+template <int CT>
+__device__ __forceinline__ void dw_f32_stage(const float* __restrict__ x,
+                                             const float* __restrict__ g, float* gsm,
+                                             float* xsm, const FGeom& p, int cidx, int ci0,
+                                             int co0) {
+  const int T = blockDim.x, tid = threadIdx.x, rows = p.R + 2;
+  const int bd = cidx / p.RB, h0 = (cidx - bd * p.RB) * p.R;
+  const int b = bd / p.D, d = bd - b * p.D;
+  const int xn = 3 * rows * p.xrow;
+  for (int i = tid; i < xn; i += T) {
+    const int pr = fdiv(i, p.inv_xrow), e = i - pr * p.xrow;
+    const int pk = fdiv(pr, p.inv_rows), r = pr - pk * rows;
+    const int j = fdiv(e, p.inv_civ), c = (e - j * p.civ) * p.vx;
+    const int dd = d + p.off + pk - 1, hh = h0 - 1 + r, ww = j - 1, cc = ci0 + c;
+    const bool in = dd >= 0 && dd < p.Dx && hh >= 0 && hh < p.H && ww >= 0 && ww < p.W &&
+                    cc < p.Cin;
+    const float* src =
+        in ? x + ((((size_t)b * p.Dx + dd) * p.H + hh) * p.W + ww) * p.Cin + cc : x;
+    const unsigned dst = smem_addr(xsm + pk * p.PS + r * p.XR + j * p.CI + c);
+    if (p.vx == 4)
+      cp_async16(dst, src, in ? 16 : 0);
+    else
+      cp_async4(dst, src, in ? 4 : 0);
+  }
+  const int gn = p.R * p.W * p.ctv;
+  for (int i = tid; i < gn; i += T) {
+    const int pos = fdiv(i, p.inv_ctv), c = (i - pos * p.ctv) * p.vg;
+    const int r = fdiv(pos, p.inv_W), ww = pos - r * p.W;
+    const int hh = h0 + r, cc = co0 + c;
+    const bool in = hh < p.H && cc < p.Cout;
+    const float* src =
+        in ? g + ((((size_t)b * p.D + d) * p.H + hh) * p.W + ww) * p.Cout + cc : g;
+    const unsigned dst = smem_addr(gsm + pos * CT + c);
+    if (p.vg == 4)
+      cp_async16(dst, src, in ? 16 : 0);
+    else
+      cp_async4(dst, src, in ? 4 : 0);
+  }
+}
 
-  const int mcol = tid % FBM, row = m0 + mcol;
-  const int tap = row < M ? row / Cin : 0, ci = row - tap * Cin;
+template <int CT>
+__global__ void __launch_bounds__(FT_MAX)
+conv3d_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                     float* __restrict__ ws, const FGeom p) {
+  extern __shared__ __align__(16) float fsm[];  // two stages of p.SB floats
+  const int tid = threadIdx.x;
+  const int ci0 = (blockIdx.x % p.ci_tiles) * p.CI, co0 = (blockIdx.x / p.ci_tiles) * CT;
+  const int ci = tid % p.CI, kh = (tid / p.CI) % 3, kd = tid / (3 * p.CI);
+  const int gfl = p.R * p.W * CT;  // the g tile's floats; the x window follows
 
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
-  for (long long kb = vbeg; kb < vend; kb += BK) {
-    for (int k = tid / FBM; k < BK; k += NT / FBM) {
-      const long long s = row < M ? shifted(kb + k, vend, tap, D, H, W, off) : -1;
-      sA[k][mcol] = s >= 0 ? x[s * Cin + ci] : 0.f;
-    }
-    for (int k = tid / TX; k < BK; k += NT / TX) {
-      const long long v = kb + k;
-      sB[k][tx] = v < vend && n0 + tx < Cout ? g[v * Cout + n0 + tx] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int k = 0; k < BK; ++k) {
-      const float b = sB[k][tx];
+  float acc[3][CT];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[r] = fmaf(sA[k][ty + TY * r], b, acc[r]);
+  for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[kw][j] = 0.f;
+
+  // chunks in order, the next one loading while this one is summed
+  const int cbeg = blockIdx.y * p.per;
+  const int cend = min(cbeg + p.per, p.nchunks);
+  if (cbeg < cend) dw_f32_stage<CT>(x, g, fsm, fsm + gfl, p, cbeg, ci0, co0);
+  cp_async_commit();
+  for (int cidx = cbeg, buf = 0; cidx < cend; ++cidx, buf ^= 1) {
+    if (cidx + 1 < cend) {
+      float* next = fsm + (buf ^ 1) * p.SB;
+      dw_f32_stage<CT>(x, g, next, next + gfl, p, cidx + 1, ci0, co0);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+
+    const float* gsm = fsm + buf * p.SB;
+    const float* xsm = gsm + gfl;
+    const int h0 = (cidx % p.RB) * p.R;
+    const int rn = min(p.R, p.H - h0);
+    for (int r = 0; r < rn; ++r) {
+      const float* xr = xsm + kd * p.PS + (r + kh) * p.XR + ci;
+      const float4* gr = reinterpret_cast<const float4*>(gsm + r * p.W * CT);
+      float xa = xr[0], xb = xr[p.CI];
+#pragma unroll 3
+      for (int w = 0; w < p.W; ++w) {
+        const float xc = xr[(w + 2) * p.CI];
+        float gv[CT];
+#pragma unroll
+        for (int q = 0; q < CT / 4; ++q) {
+          const float4 v = gr[w * (CT / 4) + q];
+          gv[4 * q] = v.x;
+          gv[4 * q + 1] = v.y;
+          gv[4 * q + 2] = v.z;
+          gv[4 * q + 3] = v.w;
+        }
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          acc[0][j] = fmaf(xa, gv[j], acc[0][j]);
+          acc[1][j] = fmaf(xb, gv[j], acc[1][j]);
+          acc[2][j] = fmaf(xc, gv[j], acc[2][j]);
+        }
+        xa = xb;
+        xb = xc;
+      }
     }
     __syncthreads();
   }
 
-  float* out = ws + (long long)blockIdx.z * M * Cout;
+  if (ci0 + ci >= p.Cin) return;
+  float* out = ws + (size_t)blockIdx.y * 27 * p.Cin * p.Cout;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int m = m0 + ty + TY * r, co = n0 + tx;
-    if (m < M && co < Cout) out[(long long)m * Cout + co] = acc[r];
+  for (int kw = 0; kw < 3; ++kw) {
+    float* o = out + ((size_t)(kd * 9 + kh * 3 + kw) * p.Cin + ci0 + ci) * p.Cout + co0;
+#pragma unroll
+    for (int j = 0; j < CT; ++j)
+      if (co0 + j < p.Cout) o[j] = acc[kw][j];
   }
 }
 
+template <int CT>
+cudaError_t launch_dw_f32(const float* x, const float* g, float* ws, const FGeom& p, dim3 grid,
+                          int threads, int smem, cudaStream_t s) {
+  auto kern = conv3d_dw_f32_kernel<CT>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<grid, threads, smem, s>>>(x, g, ws, p);
+  return cudaGetLastError();
+}
 // dw[tap][ci][co] = sum over s of ws[s][tap][ci][co] for ci < cin, co <
 // cout, the slices (27, cin_p, cout_p) taken in increasing s (deterministic).
 __global__ void __launch_bounds__(256)
@@ -618,33 +721,65 @@ extern "C" int conv3d_dw_bf16(const void* x, const void* g, void* ws, void* dw, 
   return (int)reduce(out, static_cast<float*>(dw), cin, cout, cin_p, cout_p, splits, s);
 }
 
-// f32: x (B, D + 2*off, H, W, Cin), g (B, D, H, W, Cout); ws f32 splits *
-// 27*Cin*Cout; dw f32 (3, 3, 3, Cin, Cout).  Every range of
-// ceil(K / splits) voxels (rounded up to 32) of g's K = B*D*H*W writes its
-// slice of ws, then one reduction sums the slices into dw.  Returns
-// cudaGetLastError() after the two launches (0 = launched).
+// f32: x (B, D + 2*off, H, W, Cin), g (B, D, H, W, Cout); dw f32 (3, 3, 3,
+// Cin, Cout).  The plan of icsg3d_torch/kernels/conv3d_dw.py::fma_plan: ci_t
+// input channels (<= 64) and ct output channels (4, 8 or 16) per block,
+// rows g rows per chunk, splits splits of per chunks each (none empty).
+// ws: f32 splits * 27 * Cin * Cout, or ws == dw (one split: the kernel
+// writes dw itself); else one reduction sums the slices into dw in split
+// order.  Returns cudaGetLastError() after the launches (0 = launched);
+// cudaErrorInvalidValue for a plan or shape it does not take.  Allocates
+// nothing and does not synchronise.
 extern "C" int conv3d_dw_f32(const void* x, const void* g, void* ws, void* dw, int B, int D,
-                             int H, int W, int Cin, int Cout, int splits, int off,
-                             void* stream) {
-  const long long K = (long long)B * D * H * W;
-  if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || K >= (1LL << 40) || Cin <= 0 || Cout <= 0 ||
-      splits <= 0 || splits > 65535 || (off != 0 && off != 1))
+                             int H, int W, int Cin, int Cout, int off, int ci_t, int ct,
+                             int rows, int splits, int per, void* stream) {
+  const long long rb = rows > 0 ? (H + rows - 1) / rows : 0;
+  const long long nchunks = (long long)B * D * rb;
+  const bool direct = ws == dw;
+  if (B <= 0 || D <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || (off != 0 && off != 1) ||
+      ci_t < 1 || ci_t > 64 || ci_t > Cin || (ct != 4 && ct != 8 && ct != 16) || rows < 1 ||
+      rows > H || splits < 1 || splits > 65535 || per < 1 ||
+      (long long)splits * per < nchunks || (long long)(splits - 1) * per >= nchunks ||
+      nchunks >= (1LL << 31) || (direct && splits != 1) ||
+      (long long)B * (D + 2 * off) * H * W * Cin >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
-  const long long per = (K + splits - 1) / splits;
-  const long long chunk = (per + BK - 1) / BK * BK;
+  FGeom p;
+  p.D = D; p.H = H; p.W = W; p.Cin = Cin; p.Cout = Cout; p.off = off; p.Dx = D + 2 * off;
+  p.CI = ci_t; p.R = rows; p.RB = (int)rb; p.nchunks = (int)nchunks; p.per = per;
+  p.ci_tiles = (Cin + ci_t - 1) / ci_t;
+  // row and plane strides with XR = CI and PS = 3*CI (mod 32): the lanes
+  // of a warp, (kd, kh, ci) with ci fastest, read distinct banks
+  auto pad = [](long long v, long long want) { return v + (((want - v) % 32) + 32) % 32; };
+  const long long xr = pad((long long)(W + 2) * ci_t, ci_t % 32);
+  const long long ps = pad((rows + 2) * xr, (3 * ci_t) % 32);
+  p.XR = (int)xr; p.PS = (int)ps;
+  p.vx = Cin % 4 == 0 && ci_t % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 ? 4 : 1;
+  p.vg = Cout % 4 == 0 && reinterpret_cast<uintptr_t>(g) % 16 == 0 ? 4 : 1;
+  p.civ = ci_t / p.vx; p.xrow = (W + 2) * p.civ; p.ctv = ct / p.vg;
+  p.inv_xrow = 1.f / p.xrow; p.inv_rows = 1.f / (rows + 2); p.inv_civ = 1.f / p.civ;
+  p.inv_ctv = 1.f / p.ctv; p.inv_W = 1.f / W;
+  // a stage: the g tile, then the x window, rounded to 16 bytes; two stages
+  const long long sb = ((long long)rows * W * ct + 3 * ps + 3) / 4 * 4;
+  p.SB = (int)sb;
+  const long long smem = 8 * sb;
+  const long long xn = 3LL * (rows + 2) * p.xrow, gn = (long long)rows * W * p.ctv;
+  const long long tiles = p.ci_tiles * (long long)((Cout + ct - 1) / ct);
+  if (smem > SMEM_MAX || xn >= (1 << 21) || gn >= (1 << 21) || sb >= (1 << 28) ||
+      tiles >= (1LL << 31))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* wsf = static_cast<float*>(ws);
   auto xf = static_cast<const float*>(x);
   auto gf = static_cast<const float*>(g);
-  const int M = 27 * Cin;
-  if (Cout <= 4) {
-    dim3 grid((M + 4 * (NT / 4) - 1) / (4 * (NT / 4)), (Cout + 3) / 4, splits);
-    conv3d_dw_fma_kernel<4><<<grid, NT, 0, s>>>(xf, gf, wsf, B, D, H, W, Cin, Cout, off, chunk);
-  } else {
-    dim3 grid((M + 4 * (NT / 16) - 1) / (4 * (NT / 16)), (Cout + 15) / 16, splits);
-    conv3d_dw_fma_kernel<16><<<grid, NT, 0, s>>>(xf, gf, wsf, B, D, H, W, Cin, Cout, off, chunk);
+  const dim3 grid((unsigned)tiles, (unsigned)splits);
+  const int threads = 9 * ci_t, sm = (int)smem;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (ct) {
+    case 4: err = launch_dw_f32<4>(xf, gf, wsf, p, grid, threads, sm, s); break;
+    case 8: err = launch_dw_f32<8>(xf, gf, wsf, p, grid, threads, sm, s); break;
+    case 16: err = launch_dw_f32<16>(xf, gf, wsf, p, grid, threads, sm, s); break;
+    default: break;
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || direct) return (int)err;
   return (int)reduce(wsf, static_cast<float*>(dw), Cin, Cout, Cin, Cout, splits, s);
 }

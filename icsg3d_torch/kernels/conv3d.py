@@ -20,8 +20,12 @@ halos and depth edges.  The weights are read per tap in w's own (27, Cin,
 Cout) layout.  ``plan`` decides the tiles, rows, planes, column segments
 and ring depth; the wrapper launches from it and
 ``tests/test_torch_conv_plan.py`` replays it in numpy.  f32 input (the
-VAE's f32 output head) runs on a plain FMA kernel.  See the note in the .cu
-file for what bounds it.
+VAE's f32 output head) runs on an f32 window kernel on the CUDA cores
+(exact f32 products, no TF32): a block stages its tile's x window once
+per chunk of input channels, each thread reuses its column's window
+values across the three kh taps and each weight across its rows;
+``fma_plan`` decides that tile and ``tests/test_torch_fma_plan.py``
+replays it in numpy.  See the note in the .cu file for what bounds them.
 
 Epilogues (``acc`` = conv sum + bias, all in f32):
 
@@ -126,11 +130,11 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.conv3d.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+        lib.conv3d_f32.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 17 + [ctypes.c_float, ctypes.c_void_p])
         lib.conv3d_bf16.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 21 + [ctypes.c_float, ctypes.c_void_p])
-        lib.conv3d.restype = lib.conv3d_bf16.restype = ctypes.c_int
+        lib.conv3d_f32.restype = lib.conv3d_bf16.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -296,14 +300,189 @@ def plan(B: int, D_out: int, H: int, W: int, k: int, n: int, off: int, dx: bool)
     raise ValueError(f"conv3d: no tile of a row of width {W} fits")  # not reached
 
 
+# The f32 window kernel (``conv3d_f32_kernel``): the rows and output
+# channels a thread owns (RT, CT in the .cu file), its registers (ptxas -v,
+# sm_90a build), its limits, and one SM's budget, for the plan's occupancy
+# estimate.
+FMA_RT = FMA_CT = 4
+FMA_REGS = 79
+# threads per block: more, smaller blocks per SM hid the shared loads'
+# latency better in an H100 sweep of the head's tiles (the kernel takes 256)
+FMA_MAX_THREADS = 128
+FMA_KC = (4, 8, 16, 32)           # input channels per staged chunk
+FMA_MAX_BN = 64                   # output channels per block
+SM_SMEM = 233_472                 # shared memory of one SM (228 KB)
+SM_THREADS, SM_BLOCKS, SM_REGS = 2048, 32, 65_536
+_FMA_CHUNK_CLOCKS = 1500          # a chunk's global loads and two barriers
+
+
+@dataclass(frozen=True)
+class FmaPlan:
+    """The f32 kernel's decomposition of one conv launch.
+
+    A (the conv input, or the cotangent for ``dx``) has ``k`` channels,
+    read in chunks of ``kc`` (4, 8, 16 or 32); the output has ``n``
+    channels in tiles of ``bn`` = ``ct`` * ``ng``.  A block tile is
+    ``rows`` = ``rt`` * ``rg`` rows x ``seg_w`` columns of one (b, d)
+    plane: thread ``tid`` owns column ``tid % seg_w``, rows ``rt`` *
+    (``tid // seg_w % rg``) on, and channel group ``tid // (seg_w * rg)``
+    (``ct`` channels); ``rt`` = ``ct`` = 4.  Per chunk the block stages
+    its x window, 3 planes (d + off - 1 ..) x (rows + 2) rows (from h0 -
+    1) x ``pitch`` = seg_w + 2 columns (from c0 - 1) x kc channels at a
+    column stride of ``cs`` floats, zero outside A, and the chunk's
+    weights (27 x kc x bn) from w itself (the flipped tap for dx).  Grid:
+    ``m_tiles`` blocks (column segment fastest, then row tile, plane,
+    batch) x ``n_tiles``; ``smem`` bytes of shared memory.
+    """
+
+    B: int
+    D_out: int
+    H: int
+    W: int
+    k: int
+    n: int
+    off: int
+    dx: bool
+    rg: int
+    ng: int
+    seg_w: int
+    kc: int
+
+    rt = FMA_RT
+    ct = FMA_CT
+
+    @property
+    def rows(self) -> int:
+        return self.rt * self.rg
+
+    @property
+    def bn(self) -> int:
+        return self.ct * self.ng
+
+    @property
+    def pitch(self) -> int:
+        return self.seg_w + 2
+
+    @property
+    def nc(self) -> int:
+        return _ceil(self.k, self.kc)
+
+    @property
+    def nseg(self) -> int:
+        return _ceil(self.W, self.seg_w)
+
+    @property
+    def row_tiles(self) -> int:
+        return _ceil(self.H, self.rows)
+
+    @property
+    def n_tiles(self) -> int:
+        return _ceil(self.n, self.bn)
+
+    @property
+    def m_tiles(self) -> int:
+        return self.B * self.D_out * self.row_tiles * self.nseg
+
+    @property
+    def blocks(self) -> int:
+        return self.m_tiles * self.n_tiles
+
+    @property
+    def threads(self) -> int:
+        return self.seg_w * self.rg * self.ng
+
+    @property
+    def cs(self) -> int:
+        """The window's column stride: kc, or kc + 4 from 8 channels on (a
+        warp's 16-byte reads of 32 neighbouring columns on distinct banks)."""
+        return 4 if self.kc == 4 else self.kc + 4
+
+    @property
+    def smem(self) -> int:
+        return 4 * (27 * self.kc * self.bn + 3 * (self.rows + 2) * self.pitch * self.cs)
+
+    @property
+    def regs(self) -> int:
+        """Registers a thread takes, in the allocation's units of 8."""
+        return _ceil(FMA_REGS, 8) * 8
+
+    @property
+    def blocks_per_sm(self) -> int:
+        warps = _ceil(self.threads, 32)
+        return min(SM_BLOCKS, SM_THREADS // (32 * warps), SM_SMEM // (self.smem + 1024),
+                   SM_REGS // (32 * warps * self.regs))
+
+    def tile_origin(self, t: int):
+        """M tile t's (b, d, h0, c0)."""
+        t, seg = divmod(t, self.nseg)
+        t, rtile = divmod(t, self.row_tiles)
+        b, d = divmod(t, self.D_out)
+        return b, d, rtile * self.rows, seg * self.seg_w
+
+    def thread_role(self, tid: int):
+        """Thread tid's (column, first row, channel group) in its tile."""
+        u, c = divmod(tid, self.seg_w)
+        grp, rg = divmod(u, self.rg)
+        return c, rg * self.rt, grp
+
+
+def _fma_clocks(p: FmaPlan) -> float:
+    """A rough cost of plan ``p`` in SM clocks: the busiest SM's blocks
+    times one block's clocks -- the larger of its FMA issue (4 warp
+    instructions per clock) and its shared-memory wavefronts (one per
+    clock: 4 for a warp's float4 window read, 1 for a broadcast), plus its
+    staging and per-chunk latency shared among the resident blocks -- over
+    a latency-hiding factor (full at 32 resident warps)."""
+    warps = _ceil(p.threads, 32)
+    bps = p.blocks_per_sm
+    k4 = _ceil(p.k, 4) * 4  # channels summed, in fours
+    fma = warps * 27 * k4 * p.rt * p.ct
+    lds = warps * k4 / 4 * 9 * (4 * (p.rt + 2) + 3 * p.ct)
+    vec = 4 if p.k % 4 == 0 else 1
+    stage = p.nc * (3 * (p.rows + 2) * p.pitch * p.kc / vec + 27 * p.kc * p.bn) / 32 * 6
+    resident = min(bps, _ceil(p.blocks, SMS))
+    block = max(fma / 4, lds) + stage / 4 + p.nc * _FMA_CHUNK_CLOCKS / resident
+    return _ceil(p.blocks, SMS) * block / min(1.0, resident * warps / 32)
+
+
+@functools.lru_cache(maxsize=4096)
+def fma_plan(B: int, D_out: int, H: int, W: int, k: int, n: int, off: int,
+             dx: bool) -> FmaPlan:
+    """The f32 kernel's launch plan for A (B, D_out + 2*off, H, W, k) to an
+    output (B, D_out, H, W, n): rows of at most ``FMA_MAX_THREADS``
+    columns whole (wider ones in the fewest segments), and over the channel
+    groups and row groups that fit ``FMA_MAX_THREADS`` and the chunk widths
+    whose shared memory fits, the plan with the least ``_fma_clocks``
+    (then the fewest blocks).  Never raises for a shape the kernel runs."""
+    kcs = [c for c in FMA_KC if c == 4 or c < 2 * k]
+    seg_w = _ceil(W, _ceil(W, FMA_MAX_THREADS))  # whole rows up to 128 columns
+    best = None
+    for ng in range(1, min(_ceil(n, FMA_CT), FMA_MAX_BN // FMA_CT) + 1):
+        for rg in range(1, _ceil(H, FMA_RT) + 1):
+            if seg_w * rg * ng > FMA_MAX_THREADS:
+                break
+            for kc in kcs:
+                p = FmaPlan(B, D_out, H, W, k, n, off, bool(dx), rg, ng, seg_w, kc)
+                if p.smem > SMEM_MAX or p.blocks_per_sm < 1:
+                    break
+                key = (_fma_clocks(p), p.blocks)
+                if best is None or key < best[0]:
+                    best = (key, p)
+    if best is None:
+        raise ValueError(f"conv3d: no f32 tile fits ({k} -> {n} channels)")
+    return best[1]
+
+
 def describe(a_shape, n: int, dtype: torch.dtype, mode: str = "same",
              dx: bool = False) -> dict:
-    """What one launch runs, for a report: the path (``wgmma+tma`` or the
-    f32 ``fma`` head) and, for bf16, the plan's tile."""
-    if dtype == torch.float32:
-        return {"path": "fma"}
+    """What one launch runs, for a report: the path (``wgmma+tma``, or the
+    f32 ``fma+window``) and its plan's tile."""
     B, D, H, W, k = a_shape
     off = _DEPTH_OFF[mode]
+    if dtype == torch.float32:
+        p = fma_plan(B, D - 2 * off, H, W, k, n, off, dx)
+        return {"path": "fma+window", "rows": p.rows, "bn": p.bn, "segments": p.nseg,
+                "kc": p.kc, "threads": p.threads, "smem": p.smem, "blocks": p.blocks}
     p = plan(B, D - 2 * off, H, W, k, n, off, dx)
     return {"path": "wgmma+tma", "bn": p.bn, "mt": p.mt, "rows": p.rows, "nd": p.nd,
             "segments": p.nseg, "kc": p.kc, "nw": p.nw, "nb": p.nb, "smem": p.smem,
@@ -365,12 +544,11 @@ def _launch(a, w, bias, scale, shift, epilogue, out_dtype, slope, mode, dx):
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         if a.dtype == torch.float32:
-            # the FMA kernel reads weights K-contiguous per output channel
-            wt = w.reshape(27, cin, cout)
-            wt = wt.flip(0) if dx else wt.transpose(1, 2)
-            err = lib.conv3d(a.data_ptr(), wt.contiguous().data_ptr(), bias.data_ptr(), sc, sh,
-                             out.data_ptr(), B, D, d_out, off, H, W, k, n,
-                             _DTYPE_CODE[out_dtype], epi, float(slope), stream)
+            p = fma_plan(B, d_out, H, W, k, n, off, bool(dx))
+            err = lib.conv3d_f32(
+                a.data_ptr(), w.data_ptr(), bias.data_ptr(), sc, sh, out.data_ptr(),
+                B, D, d_out, off, H, W, k, n, cin, cout, int(p.dx), p.rg, p.ng, p.seg_w,
+                p.kc, int(out_dtype == torch.float32), epi, float(slope), stream)
         else:
             p = plan(B, d_out, H, W, k, n, off, bool(dx))
             a = _aligned(_pad_channels(a, p.k_p))

@@ -17,8 +17,13 @@ by cp.async) and feed the nine taps of one kd on wgmma.  K is
 split across blocks into an f32 workspace that a second pass sums in a
 fixed order (deterministic).  ``plan`` is that decomposition in Python:
 the wrapper launches from it, and ``tests/test_torch_dw_plan.py`` replays
-it in numpy.  f32 operands (the VAE's f32 output head) run on an FMA
-kernel.  See the note in the .cu file for what bounds it.
+it in numpy.  f32 operands (the VAE's f32 output head) run on an f32
+sliding-window kernel on the CUDA cores (exact f32 products, no TF32):
+a block stages one chunk's x window and g rows once, each thread owns a
+(kd, kh, input channel) and slides three x values along each g row;
+``fma_plan`` decides the channel tiles, rows per chunk and splits, and
+``tests/test_torch_fma_plan.py`` replays it in numpy.  See the note in the
+.cu file for what bounds them.
 
 The VALID mode (``conv3d_dw_valid_cuda``, K2's ``depth_valid``,
 lowc_conv.py:380-387) takes x as a halo-padded depth slab of D + 2 planes
@@ -57,9 +62,17 @@ MAX_SPLITS = 64
 STAGE_BYTES_PER_S = 22e9
 WS_BYTES_PER_S = 2.5e12
 _BN_CHOICES = (8, 16, 32, 64)     # wgmma N of the narrow channel side
-_FMA_TILE = {4: (128, 4), 16: (32, 16)}  # f32: column threads -> (rows, cols)
-_FMA_TARGET_BLOCKS = 8 * SMS
-_FMA_BK = 32
+# The f32 sliding-window kernel: output channels per block (its
+# instantiations), input channels per block (9 threads each), and one
+# SM's budget for the plan's occupancy estimate.
+FMA_CT = (4, 8, 16)
+FMA_REGS = {4: 55, 8: 56, 16: 91}  # registers per thread (ptxas -v, sm_90a build)
+FMA_MAX_CI = 64
+SM_SMEM = 233_472                 # shared memory of one SM (228 KB)
+SM_THREADS, SM_BLOCKS, SM_REGS = 2048, 32, 65_536
+_FMA_CHUNK_CLOCKS = 300           # a chunk's two barriers (its loads overlap the last)
+_CLOCK_HZ = 1.755e9               # H100 SXM boost clock, for the workspace term
+_SPLIT_SUM_CLOCKS = 60            # reduce_splits_kernel: one thread's serial add per split
 
 # Incremented once per kernel launch, never by the plain version.
 launches = 0
@@ -86,7 +99,7 @@ def load() -> ctypes.CDLL:
         lib.conv3d_dw_bf16.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p])
         lib.conv3d_dw_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p])
         lib.conv3d_dw_bf16.restype = lib.conv3d_dw_f32.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -249,22 +262,205 @@ def _launch_plan(B, D, H, W, cin, cout, off):
                   0 if direct else splits * per_split, direct)
 
 
-def _fma_splits(vox: int, cin: int, cout: int) -> int:
-    """f32 head: how many blocks share the voxel axis, enough for
-    ``_FMA_TARGET_BLOCKS`` over the tiles, at most one per 32 voxels."""
-    rows, cols = _FMA_TILE[4 if cout <= 4 else 16]
-    tiles = _ceil(27 * cin, rows) * _ceil(cout, cols)
-    return max(1, min(_ceil(_FMA_TARGET_BLOCKS, tiles), _ceil(vox, _FMA_BK)))
+def _pad32(v: int, want: int) -> int:
+    """The least v' >= v with v' = want (mod 32)."""
+    return v + (want - v) % 32
+
+
+@dataclass(frozen=True)
+class DwFmaPlan:
+    """The f32 kernel's decomposition of one weight gradient.
+
+    A block owns ``ci_t`` input channels (9 threads each: (kd, kh, ci),
+    ci fastest) x ``ct`` output channels; grid (``ci_tiles`` *
+    ``co_tiles``, ``splits``), the input-channel tile fastest.  K runs
+    over ``chunks`` of ``rows`` g rows of one (b, d) plane, in the order
+    of ``chunk_origin``; split s walks chunks ``split_ranges[s]`` in
+    increasing order.  A chunk's x window is 3 planes (d + off - 1 ..) x
+    (rows + 2) rows (from h0 - 1) x (W + 2) columns (from -1) x ci_t
+    channels, at row stride ``xr`` and plane stride ``ps`` (floats); its g
+    tile rows x W x ct; two such stages, the next chunk loading (cp.async)
+    while this one is summed.  Thread (kd, kh, ci) adds x at window column w +
+    kw of row r + kh, plane kd, times g at (r, w) into dW[kd, kh, kw].
+    ``ws_elems`` f32 of workspace (0 when ``direct``: one split writes dW
+    itself).  A row too wide for shared memory runs as ``segments``
+    column segments of ``seg_w`` g columns, each a launch of width ``W`` =
+    ``seg_w`` + 2, as in ``DwPlan``.
+    """
+
+    B: int
+    D: int
+    H: int
+    W: int
+    cin: int
+    cout: int
+    off: int
+    ci_t: int
+    ct: int
+    rows: int
+    per: int
+    splits: int
+    segments: int = 1
+    seg_w: int = 0
+
+    @property
+    def ci_tiles(self) -> int:
+        return _ceil(self.cin, self.ci_t)
+
+    @property
+    def co_tiles(self) -> int:
+        return _ceil(self.cout, self.ct)
+
+    @property
+    def grid(self):
+        return (self.ci_tiles * self.co_tiles, self.splits)
+
+    @property
+    def threads(self) -> int:
+        return 9 * self.ci_t
+
+    @property
+    def row_blocks(self) -> int:
+        return _ceil(self.H, self.rows)
+
+    @property
+    def chunks(self) -> int:
+        return self.B * self.D * self.row_blocks
+
+    @property
+    def xr(self) -> int:
+        return _pad32((self.W + 2) * self.ci_t, self.ci_t % 32)
+
+    @property
+    def ps(self) -> int:
+        return _pad32((self.rows + 2) * self.xr, 3 * self.ci_t % 32)
+
+    @property
+    def stage(self) -> int:
+        """Floats of one of the two stages: the g tile, then the x window,
+        rounded up to 16 bytes."""
+        return _ceil(self.rows * self.W * self.ct + 3 * self.ps, 4) * 4
+
+    @property
+    def smem(self) -> int:
+        return 2 * 4 * self.stage
+
+    @property
+    def direct(self) -> bool:
+        return self.splits == 1
+
+    @property
+    def ws_elems(self) -> int:
+        return 0 if self.direct else self.splits * 27 * self.cin * self.cout
+
+    @property
+    def regs(self) -> int:
+        """Registers a thread takes (``FMA_REGS``), in units of 8."""
+        return _ceil(FMA_REGS[self.ct], 8) * 8
+
+    @property
+    def blocks_per_sm(self) -> int:
+        warps = _ceil(self.threads, 32)
+        return min(SM_BLOCKS, SM_THREADS // (32 * warps), SM_SMEM // (self.smem + 1024),
+                   SM_REGS // (32 * warps * self.regs))
+
+    @property
+    def split_ranges(self):
+        return [(s * self.per, min((s + 1) * self.per, self.chunks))
+                for s in range(self.splits)]
+
+    def chunk_origin(self, c: int):
+        """Chunk c's g plane and first row: (b, d, h0)."""
+        bd, rb = divmod(c, self.row_blocks)
+        b, d = divmod(bd, self.D)
+        return b, d, rb * self.rows
+
+    def thread_role(self, tid: int):
+        """Thread tid's (kd, kh, ci) within its tile."""
+        u, ci = divmod(tid, self.ci_t)
+        return u // 3, u % 3, ci
+
+
+def _dw_fma_clocks(p: DwFmaPlan) -> float:
+    """A rough cost of plan ``p`` in SM clocks: the busiest SM's blocks
+    times one block's chunks -- each the larger of its FMA issue (4 warp
+    instructions per clock) and its shared loads (one wavefront per clock),
+    plus its staging and latency shared among the resident blocks -- over
+    a latency-hiding factor (full at 16 resident warps), plus the
+    workspace written and summed."""
+    warps = _ceil(p.threads, 32)
+    pos = p.rows * p.W
+    fma = warps * pos * 3 * p.ct
+    lds = warps * pos * (1 + p.ct / 4)
+    vx = 4 if p.cin % 4 == 0 and p.ci_t % 4 == 0 else 1
+    vg = 4 if p.cout % 4 == 0 else 1
+    stage = (3 * (p.rows + 2) * (p.W + 2) * p.ci_t / vx + pos * p.ct / vg) / 32 * 8
+    blocks = p.grid[0] * p.grid[1]
+    resident = min(p.blocks_per_sm, _ceil(blocks, SMS))
+    chunk = max(fma / 4, lds) + stage / 4 + _FMA_CHUNK_CLOCKS / resident
+    t = _ceil(blocks, SMS) * p.per * chunk / min(1.0, resident * warps / 16)
+    if not p.direct:  # the workspace's bytes, and the split sum's serial adds
+        t += 4 * 27 * p.cin * p.cout * (2 * p.splits + 1) / WS_BYTES_PER_S * _CLOCK_HZ
+        t += p.splits * _SPLIT_SUM_CLOCKS
+    return t
+
+
+@functools.lru_cache(maxsize=1024)
+def fma_plan(B: int, D: int, H: int, W: int, cin: int, cout: int, off: int) -> DwFmaPlan:
+    """The f32 kernel's launch plan for x (B, D + 2*off, H, W, cin) and g
+    (B, D, H, W, cout).  A row too wide for shared memory is split into the
+    fewest column segments whose launches fit (see ``DwFmaPlan``)."""
+    p = _fma_launch_plan(B, D, H, W, cin, cout, off)
+    if p is not None:
+        return dataclasses.replace(p, seg_w=W)
+    for segments in range(2, W + 1):
+        seg_w = _ceil(W, segments)
+        p = _fma_launch_plan(B, D, H, seg_w + 2, cin, cout, off)
+        if p is not None:
+            return dataclasses.replace(p, segments=_ceil(W, seg_w), seg_w=seg_w)
+    raise ValueError(f"conv3d_dw: no f32 column segment of a row of width {W} fits")
+
+
+def _fma_launch_plan(B, D, H, W, cin, cout, off):
+    """One launch's plan at row width W, or None if no tile fits: over the
+    channel tiles and rows per chunk whose shared memory fits, and the
+    split counts that fill the card's block slots once (the SMs times the
+    blocks each holds, over the tiles; at most the chunks, 65,535 and a 32
+    MB workspace) or 1/2, 1/4 or 1/8 of them (fewer splits to sum), the
+    plan with the least ``_dw_fma_clocks``."""
+    cis = sorted({min(cin, FMA_MAX_CI)} | {c for c in (4, 8, 16, 32) if c < cin})
+    best = None
+    for ct in FMA_CT:
+        for ci_t in cis:
+            for rows in range(1, H + 1):
+                p = DwFmaPlan(B, D, H, W, cin, cout, off, ci_t, ct, rows, 1, 1)
+                if p.smem > SMEM_MAX or p.blocks_per_sm < 1:
+                    break
+                tiles = p.ci_tiles * p.co_tiles
+                s_max = max(1, min(p.chunks, 65535,
+                                   WS_MAX_BYTES // (4 * 27 * cin * cout)))
+                fill = max(1, min(s_max, _ceil(SMS * p.blocks_per_sm, tiles)))
+                for splits in sorted({max(1, fill // f) for f in (1, 2, 4, 8)}):
+                    per = _ceil(p.chunks, splits)
+                    q = DwFmaPlan(B, D, H, W, cin, cout, off, ci_t, ct, rows, per,
+                                  _ceil(p.chunks, per))
+                    key = (_dw_fma_clocks(q), q.splits)
+                    if best is None or key < best[0]:
+                        best = (key, q)
+    return None if best is None else best[1]
 
 
 def describe(x_shape, g_shape, dtype: torch.dtype, off: int = 0) -> dict:
-    """What one launch runs, for a report: the path (``wgmma`` or ``fma``),
-    the split count and the workspace bytes."""
+    """What one launch runs, for a report: the path (``wgmma+tma``,
+    ``wgmma+cp.async`` or the f32 ``fma+slide``), the split count, the
+    workspace bytes and the plan's tile."""
     B, D, H, W, cout = g_shape
     cin = x_shape[4]
     if dtype == torch.float32:
-        splits = _fma_splits(B * D * H * W, cin, cout)
-        return {"path": "fma", "splits": splits, "ws_bytes": 4 * splits * 27 * cin * cout}
+        p = fma_plan(B, D, H, W, cin, cout, off)
+        return {"path": "fma+slide", "splits": p.splits, "ws_bytes": 4 * p.ws_elems,
+                "ci_t": p.ci_t, "ct": p.ct, "rows": p.rows, "per": p.per, "smem": p.smem,
+                "threads": p.threads, "segments": p.segments}
     p = plan(B, D, H, W, cin, cout, off)
     return {"path": p.path, "splits": p.splits, "ws_bytes": 4 * p.ws_elems,
             "swap": p.swap, "bn": p.bn, "rows": p.rows, "kc": p.kc, "smem": p.smem}
@@ -326,23 +522,19 @@ def _launch(x, g, off, name):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         if x.dtype == torch.float32:
-            splits = _fma_splits(B * D * H * W, cin, cout)
-            ws = torch.empty(splits * 27 * cin * cout, dtype=torch.float32, device=x.device)
-            err = lib.conv3d_dw_f32(x.data_ptr(), g.data_ptr(), ws.data_ptr(),
-                                    dw.data_ptr(), B, D, H, W, cin, cout, splits, off,
-                                    stream)
+            p, one = fma_plan(B, D, H, W, cin, cout, off), _launch_f32
         else:
-            p = plan(B, D, H, W, cin, cout, off)
-            xp, gp = _pad_channels(x, p.cin_p), _pad_channels(g, p.cout_p)
-            if p.segments == 1:
-                err = _launch_bf16(lib, p, xp, gp, dw, stream)
-            else:
-                err, total = 0, None
-                for xs, gs in column_segments(xp, gp, p.seg_w):
-                    part = torch.empty_like(dw)
-                    err = err or _launch_bf16(lib, p, xs, gs, part, stream)
-                    total = part if total is None else total.add_(part)
-                dw.copy_(total)
+            p, one = plan(B, D, H, W, cin, cout, off), _launch_bf16
+            x, g = _pad_channels(x, p.cin_p), _pad_channels(g, p.cout_p)
+        if p.segments == 1:
+            err = one(lib, p, x, g, dw, stream)
+        else:
+            err, total = 0, None
+            for xs, gs in column_segments(x, g, p.seg_w):
+                part = torch.empty_like(dw)
+                err = err or one(lib, p, xs, gs, part, stream)
+                total = part if total is None else total.add_(part)
+            dw.copy_(total)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     return dw
@@ -361,6 +553,15 @@ def column_segments(x, g, seg_w: int):
         n = min(seg_w, W - c0)
         yield (xw[:, :, :, c0:c0 + seg_w + 2].contiguous(),
                F.pad(g[:, :, :, c0:c0 + n], (0, 0, 1, seg_w + 1 - n)).contiguous())
+
+
+def _launch_f32(lib, p: DwFmaPlan, x, g, dw, stream) -> int:
+    """One f32 launch of plan ``p`` (its row width p.W) into dw."""
+    ws = dw if p.direct else torch.empty(p.ws_elems, dtype=torch.float32, device=x.device)
+    B, D, H, W = g.shape[:4]
+    return lib.conv3d_dw_f32(
+        x.data_ptr(), g.data_ptr(), ws.data_ptr(), dw.data_ptr(), B, D, H, W, p.cin,
+        p.cout, p.off, p.ci_t, p.ct, p.rows, p.splits, p.per, stream)
 
 
 def _launch_bf16(lib, p: DwPlan, x, g, dw, stream) -> int:

@@ -211,7 +211,7 @@ def test_describe_reports_the_plan():
     d = k.describe((10, 32, 32, 32, 192), 128, torch.bfloat16)
     p = k.plan(10, 32, 32, 32, 192, 128, 0, False)
     assert d["path"] == "wgmma+tma" and (d["bn"], d["mt"], d["blocks"]) == (p.bn, p.mt, p.blocks)
-    assert k.describe((20, 32, 32, 32, 16), 4, torch.float32)["path"] == "fma"
+    assert k.describe((20, 32, 32, 32, 16), 4, torch.float32)["path"] == "fma+window"
     d = k.describe((10, 18, 32, 32, 128), 192, torch.bfloat16, "full", dx=True)
     assert d["blocks"] == k.plan(10, 20, 32, 32, 128, 192, -1, True).blocks
 

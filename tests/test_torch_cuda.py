@@ -548,3 +548,107 @@ def test_sharded_conv_across_cards_matches_same_conv(cuda_device):
     mesh = make_mesh(n_spatial=2)
     assert len({d.index for d in mesh.devices.flat}) == mesh.devices.size
     _sharded_vs_same(mesh, torch.device("cuda", 0), 2 * mesh.shape["data"])
+
+
+# -- the f32 kernels (the VAE's f32 output head and any f32 conv) -------------
+
+F32_GRIDS = [
+    # (B, D, H, W): the head at production (32^3, batch 20) and ragged rows
+    (20, 32, 32, 32),
+    (2, 5, 3, 1),
+    (2, 4, 5, 33),
+    (1, 3, 2, 130),
+]
+# (grid, Cin, Cout): the head (16 -> 4) at every grid, the general f32
+# shapes 14 -> 16 and 32 -> 64 at the ragged ones
+F32_CASES = ([(g, 16, 4) for g in F32_GRIDS]
+             + [(g, ci, co) for g in F32_GRIDS[1:] for ci, co in ((14, 16), (32, 64))])
+F32_IDS = [f"{ci}to{co}-b{b}d{d}h{h}w{w}" for (b, d, h, w), ci, co in F32_CASES]
+EPILOGUES = ("bias", "affine_leaky", "relu_affine", "affine_relu")
+
+
+def _f32_operands(seed, B, D, H, W, cin, cout, depth_extra=0, cotangent=False):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randn(B, D + depth_extra, H, W, cout if cotangent else cin, generator=g)
+    w = torch.randn(3, 3, 3, cin, cout, generator=g) / (27 * (cout if cotangent else cin)) ** 0.5
+    return a.cuda(), w.cuda(), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["same", "valid"])
+@pytest.mark.parametrize("case", F32_CASES, ids=F32_IDS)
+def test_f32_forward_kernel_on_card(cuda_device, case, mode):
+    """The f32 window kernel's forward, SAME and depth-VALID, every epilogue,
+    f32 and bf16 out, against the plain version (1e-4 / 1e-2 of max|ref|);
+    a second launch gives the same bits."""
+    (B, D, H, W), cin, cout = case
+    x, w, g = _f32_operands(20, B, D, H, W, cin, cout, 2 if mode == "valid" else 0)
+    b, scale, shift = (torch.randn(cout, generator=g).cuda() for _ in range(3))
+    run = k.conv3d_same_cuda if mode == "same" else k.conv3d_valid_cuda
+    ref_fn = k.conv3d_same_reference if mode == "same" else k.conv3d_valid_reference
+    assert k.describe(tuple(x.shape), cout, torch.float32, mode)["path"] == "fma+window"
+    for epi in EPILOGUES:
+        for odt in (torch.float32, torch.bfloat16):
+            args = (x, w, b, scale, shift, epi, odt)
+            got = run(*args)
+            torch.cuda.synchronize()
+            ref = ref_fn(*args)
+            assert got.dtype == odt and got.shape == ref.shape == (B, D, H, W, cout)
+            assert _rel_err(got, ref) <= (1e-4 if odt == torch.float32 else 1e-2), (epi, odt)
+            assert torch.equal(got, run(*args)), (epi, odt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["same", "full"])
+@pytest.mark.parametrize("case", F32_CASES, ids=F32_IDS)
+def test_f32_dx_kernel_on_card(cuda_device, case, mode):
+    """The f32 input gradient, SAME and the full depth window, f32 and bf16
+    out, read from w's flipped taps: within 1e-4 / 1e-2 of max|ref|, the
+    same bits again."""
+    (B, D, H, W), cin, cout = case
+    gy, w, _ = _f32_operands(21, B, D, H, W, cin, cout, cotangent=True)
+    run = k.conv3d_dx_cuda if mode == "same" else k.conv3d_dx_valid_cuda
+    ref_fn = k.conv3d_dx_reference if mode == "same" else k.conv3d_dx_valid_reference
+    for odt in (torch.float32, torch.bfloat16):
+        got = run(gy, w, odt)
+        torch.cuda.synchronize()
+        ref = ref_fn(gy, w, odt)
+        assert got.shape == ref.shape == (B, D + (2 if mode == "full" else 0), H, W, cin)
+        assert got.dtype == odt
+        assert _rel_err(got, ref) <= (1e-4 if odt == torch.float32 else 1e-2), odt
+        assert torch.equal(got, run(gy, w, odt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("off", [0, 1], ids=["same", "valid"])
+@pytest.mark.parametrize("case", F32_CASES, ids=F32_IDS)
+def test_f32_dw_kernel_on_card(cuda_device, case, off):
+    """The f32 sliding-window weight gradient, SAME and depth-VALID: within
+    1e-3 of max|ref|, and the split sum in a fixed order gives the same
+    bits again."""
+    (B, D, H, W), cin, cout = case
+    x, _, g = _f32_operands(22, B, D, H, W, cin, cout, 2 * off)
+    gy = torch.randn(B, D, H, W, cout, generator=g).cuda()
+    run = kdw.conv3d_dw_valid_cuda if off else kdw.conv3d_dw_cuda
+    ref_fn = kdw.conv3d_dw_valid_reference if off else kdw.conv3d_dw_reference
+    assert kdw.describe(tuple(x.shape), tuple(gy.shape), torch.float32, off)["path"] == \
+        "fma+slide"
+    got = run(x, gy)
+    torch.cuda.synchronize()
+    ref = ref_fn(x, gy)
+    assert got.shape == (3, 3, 3, cin, cout) and _rel_err(got, ref) <= 1e-3
+    assert torch.equal(got, run(x, gy))
+
+
+@pytest.mark.cuda
+def test_f32_dw_kernel_wide_row_on_card(cuda_device):
+    """The f32 weight gradient at W = 1000: a row too wide for one launch's
+    window, split into column segments summed in order; equal bits again."""
+    g = torch.Generator(device="cpu").manual_seed(23)
+    x = torch.randn(1, 2, 3, 1000, 16, generator=g).to(cuda_device)
+    gy = torch.randn(1, 2, 3, 1000, 4, generator=g).to(cuda_device)
+    assert kdw.fma_plan(1, 2, 3, 1000, 16, 4, 0).segments > 1
+    got = kdw.conv3d_dw_cuda(x, gy)
+    torch.cuda.synchronize()
+    assert _rel_err(got, kdw.conv3d_dw_reference(x, gy)) <= 1e-3
+    assert torch.equal(got, kdw.conv3d_dw_cuda(x, gy))

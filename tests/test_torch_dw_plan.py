@@ -252,7 +252,7 @@ def test_plan_roles_and_padding():
 
 def test_describe_reports_path_and_workspace():
     d = kdw.describe((20, 32, 32, 32, 16), (20, 32, 32, 32, 4), torch.float32)
-    assert d["path"] == "fma" and d["ws_bytes"] == 4 * d["splits"] * 27 * 16 * 4
+    assert d["path"] == "fma+slide" and d["ws_bytes"] == 4 * d["splits"] * 27 * 16 * 4
     d = kdw.describe((10, 32, 32, 32, 192), (10, 32, 32, 32, 128), torch.bfloat16)
     p = kdw.plan(10, 32, 32, 32, 192, 128, 0)
     assert d["path"] == "wgmma+tma" and d["ws_bytes"] == 4 * p.ws_elems

@@ -26,7 +26,8 @@ from icsg3d_tpu.ops.pallas_conv import conv3d_bn_relu_pallas
 torch.set_num_threads(1)
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-SHAPES = [(4, 8), (14, 16)]  # (Cin, Cout); 14 = the VAE encoder's input
+# (Cin, Cout); 14 = the VAE encoder's input, 16 -> 4 the VAE's f32 output head
+SHAPES = [(4, 8), (14, 16), (16, 4)]
 
 
 def _inputs(cin, cout, seed=0):
