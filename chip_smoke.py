@@ -72,7 +72,10 @@ Phases (any failure exits nonzero, before the result line):
    density within rtol 2e-4 / atol 1e-6; kernel and plain CUDA-event
    medians and the bound (the largest of bytes / 3.35 TB/s, f32 operations
    / 66.9 TFLOP/s, exponentials / the SFU rate of 16 per SM per clock at
-   the card's maximum SM clock), counted over the real sites.
+   the card's maximum SM clock), counted over the real sites.  Each row
+   adds the profiled device ms of K4's two kernels (main and per-structure
+   setup) and the bound share, and prints the thread tile and the voxels
+   that took the tie walk (inside two or more radii).
 10. Dataset build: ``icsg3d_torch.apps.voxelize.main`` on the real CIFs
    (``--nrot 2 --d 32``, card and ``--device cpu``: identical ids and
    species, density within rtol 2e-4) and on 300 synthetic structures
@@ -1077,9 +1080,34 @@ def species_margins(arrs, d, where, limit=10):
     return lines
 
 
+def vox_tie_voxels(args, d: int, label_frac: float = 1.0) -> int:
+    """Voxels inside two or more labelling radii (the plain version's
+    n_within >= 2, same d2 rounding): those that take K4's tie walk."""
+    import torch
+
+    from icsg3d_torch.kernels.voxelize import voxel_axes
+
+    sites, _, sigma, mask, abc = args
+    ax = voxel_axes(abc, d, 0.25)
+    rad = torch.where(mask > 0, torch.clamp(sigma, min=1e-6) * label_frac,
+                      torch.full_like(sigma, -1.0))
+    n = 0
+    for b in range(sites.shape[0]):
+        X, Y, Z = torch.meshgrid(ax[b, 0], ax[b, 1], ax[b, 2], indexing="ij")
+        vx, vy, vz = (t.reshape(-1, 1) for t in (X, Y, Z))
+        sx, sy, sz = (sites[b, None, :, a] for a in range(3))
+        v2 = (vx * vx + vy * vy) + vz * vz
+        n2 = (sx * sx + sy * sy) + sz * sz
+        d2 = torch.clamp(v2 + n2 - 2.0 * ((vx * sx + vy * sy) + vz * sz), min=0.0)
+        n += int(((torch.sqrt(d2) < rad[b, None]).sum(dim=1) >= 2).sum())
+    return n
+
+
 def phase_voxelize_kernel(card: str):
     """K4 against its plain version on one production launch and on the
-    real CIFs, with times and the bound."""
+    real CIFs, with times, the profiled device time of its two kernels, the
+    bound and bound share, its thread tile and the voxels of the tie
+    walk."""
     import numpy as np
     import torch
 
@@ -1100,8 +1128,12 @@ def phase_voxelize_kernel(card: str):
         ("real CIFs", real_cif_structures()),
     ]
     rows = []
+    qd, tpc, blocks = kv.tile(D)
     print(f"[voxelize-kernel] {D}^3, site_pad {SITE_PAD} ({card}; {sms} SMs, max SM "
-          f"clock {clock_hz / 1e6:.0f} MHz, SFU {exp_rate / 1e12:.3f} T exp/s)")
+          f"clock {clock_hz / 1e6:.0f} MHz, SFU {exp_rate / 1e12:.3f} T exp/s); tile: "
+          f"{4 * kv.QUADS_PER_THREAD} k voxels per thread ({kv.QUADS_PER_THREAD} float4 "
+          f"per grid), {tpc} threads per column, {blocks} blocks of {kv.THREADS} per "
+          f"structure, after a setup kernel of one thread per site")
     for label, structures in inputs:
         arrs = _pack(structures)
         args = [torch.from_numpy(a).cuda() for a in arrs]
@@ -1129,12 +1161,19 @@ def phase_voxelize_kernel(card: str):
         pad_ms = 1e3 * max(t["bytes"], n["flops_padded"] / PEAK_FLOPS["f32"],
                            n["exps_padded"] / exp_rate)
         real = int(np.count_nonzero(arrs[3]))
+        dev = profiled_ms(lambda *a: kv.voxelize_cuda(*a, D, 0.25, 1.0), args,
+                          ("voxelize_kernel", "voxelize_sites"))
+        dev_ms = dev["voxelize_kernel"] + dev["voxelize_sites"]
+        ties = vox_tie_voxels(args, D)
         print(f"  {label}: {len(structures)} structures, {real} real sites of "
               f"{arrs[3].size} padded; species equal, density max abs err "
               f"{abs_err:.3e} (max {float(ref_d.max()):.3e}); kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms; bound {bms:.4f} ms by {bby} (bytes "
-              f"{1e3 * t['bytes']:.4f}, f32 ops {1e3 * t['f32']:.4f}, exp "
-              f"{1e3 * t['exp']:.4f} ms; over the padded sites {pad_ms:.4f} ms)")
+              f"device {dev_ms:.4f} ms (main {dev['voxelize_kernel']:.4f} + setup "
+              f"{dev['voxelize_sites']:.4f}), plain {plain_ms:.4f} ms; bound {bms:.4f} "
+              f"ms by {bby} (bytes {1e3 * t['bytes']:.4f}, f32 ops {1e3 * t['f32']:.4f}, "
+              f"exp {1e3 * t['exp']:.4f} ms; over the padded sites {pad_ms:.4f} ms); "
+              f"bound/device {bms / max(dev_ms, 1e-9):5.3f}, bound/kernel "
+              f"{bms / ms:5.3f}; tie walk {ties} of {len(structures) * D ** 3} voxels")
         rows.append(dict(model=label, abs_err=abs_err, ms=ms, plain_ms=plain_ms,
                          library_ms=None, bound_ms=bms,
                          bound_by="bytes" if bby == "bytes" else "operations",

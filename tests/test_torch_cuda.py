@@ -318,25 +318,51 @@ def _voxel_batch(n, seed, site_pad=64, kinds=("perovskite", "rocksalt")):
     return [torch.from_numpy(np.stack([r[i] for r in rows])) for i in range(5)]
 
 
+# (inputs, d, site_pad, label_frac): n synthetic structures, the crafted
+# square-root-tie and labelling-radius batch of test_torch_vox_plan.py, or
+# the repo's real CIFs (those within 40 sites, as the build keeps them)
+VOX_CASES = [
+    (3, 16, 64, 1.0), (256, 32, 64, 1.0), (4, 5, 64, 1.0), (4, 33, 64, 1.0),
+    (8, 64, 64, 1.0), (4, 16, 1024, 1.0), (6, 16, 64, 0.0), (6, 16, 64, 1.5),
+    ("crafted", 8, 6, 1.0), ("crafted", 33, 6, 1.5), ("real", 32, 40, 1.0),
+    ("real", 33, 40, 1.5),
+]
+
+
+def _vox_case_args(inputs, site_pad):
+    if inputs == "crafted":
+        from test_torch_vox_plan import crafted_batch
+
+        return [torch.from_numpy(a) for a in crafted_batch()]
+    if inputs == "real":
+        from test_torch_vox_plan import _pack, _real_cifs
+
+        return [torch.from_numpy(a) for a in _pack(_real_cifs(), site_pad)]
+    return _voxel_batch(inputs, seed=inputs, site_pad=site_pad)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,d", [(3, 16), (256, 32)])
-def test_voxelize_kernel_matches_reference_on_card(cuda_device, n, d):
+@pytest.mark.parametrize("n,d,site_pad,label_frac", VOX_CASES,
+                         ids=[f"{c[0]}-d{c[1]}-S{c[2]}-lf{c[3]}" for c in VOX_CASES])
+def test_voxelize_kernel_matches_reference_on_card(cuda_device, n, d, site_pad, label_frac):
     """K4 against its plain version on the same operands: species
     identical, density within rtol 2e-4 / atol 1e-6 (sums over sites in
-    another order); a second launch gives the same bits."""
+    another order, exp as ex2.approx); a second launch gives the same
+    bits."""
     from icsg3d_torch.kernels import voxelize as kv
 
-    args = [t.to(cuda_device) for t in _voxel_batch(n, seed=n)]
+    args = [t.to(cuda_device) for t in _vox_case_args(n, site_pad)]
+    B = args[0].shape[0]
     n0 = kv.launches
-    dens, spec = kv.voxelize_cuda(*args, d, 0.25, 1.0)
+    dens, spec = kv.voxelize_cuda(*args, d, 0.25, label_frac)
     torch.cuda.synchronize()
     assert kv.launches == n0 + 1
-    ref_d, ref_s = kv.voxelize_reference(*args, d, 0.25, 1.0)
-    assert dens.shape == spec.shape == (n, d, d, d)
+    ref_d, ref_s = kv.voxelize_reference(*args, d, 0.25, label_frac)
+    assert dens.shape == spec.shape == (B, d, d, d)
     assert torch.equal(spec, ref_s)
     assert torch.allclose(dens, ref_d, rtol=2e-4, atol=1e-6)
-    assert int((spec > 0).sum()) > 0
-    again = kv.voxelize_cuda(*args, d, 0.25, 1.0)
+    assert int((spec > 0).sum()) > 0 or label_frac == 0.0
+    again = kv.voxelize_cuda(*args, d, 0.25, label_frac)
     assert torch.equal(dens, again[0]) and torch.equal(spec, again[1])
 
 
