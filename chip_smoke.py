@@ -117,8 +117,33 @@ Phases (any failure exits nonzero, before the result line):
    one sharded train and eval step alone; both train steps' times
    (CUDA-event medians, in turns); one profiled sharded train step.
 
+17. CGCNN training: ``icsg3d_torch.apps.train_cgcnn.main`` at production
+   width (93 -> 64, 41 centres, 50 x 12 graphs, hidden 128, f32) on 320
+   synthetic structures, 2 epochs at batch 32 (8 steps + 2 val batches),
+   once per property (formation energy, band gap): finite losses,
+   best.npz, latest.npz and history.json, no conv launch; TF32 off; the
+   train step's and the forward's CUDA-event medians at batch 32 (train
+   graphs/s, predictions/s) and one profiled train step.
+18. GPU vs CPU for CGCNN at batch 32, same seeded weights and batch:
+   predictions within 1e-5 of max(1, max|pred|), one train step's loss
+   within 1e-5 relative and every gradient within 1e-4 of its max.
+19. Prediction: ``apps.predict.main`` on the real CIFs with the two
+   checkpoints, card and ``--device cpu``: a record per CIF, the same
+   parse errors, finite properties within 1e-5 of max(1, max|value|).
+20. ``apps.generate --fused --cgcnn-ckpt`` with both checkpoints on the
+   blob dataset of phase 4 (the VAE's coordinate outputs scaled to cells
+   of a few Angstrom, threshold 0.9999, atoms merged within 1.5 Angstrom;
+   see ``phase_generate_cgcnn``): 24 conv launches; every structure of
+   1..50 atoms carries both properties.
+21. Evaluation: ``apps.evaluate.main`` on the synthetic build of phase 10
+   (``--samples 45``: 9 validation samples, one batch of 10, padded) with
+   the seeded models, card and ``--device cpu``: every sample evaluated or
+   skipped, one K1 ``bias`` and 23 folded launches per batch, the same
+   n_evaluated on the CPU and lattices within 1e-2 relative.
+
 It imports nothing of JAX.  The last two stdout lines are the kernels
-JSON object and then ``{"ok": true, "device": {...}}``.
+JSON object and then ``{"ok": true, "device": {...}}``; the kernels'
+launches count generation with ``--cgcnn-ckpt`` and evaluate too.
 """
 
 from __future__ import annotations
@@ -233,6 +258,19 @@ SPATIAL_DEVICES = ",".join(["cuda:0"] * SPATIAL)
 PEAK_FLOPS = {"bf16": 989.4e12, "f32": 66.9e12}
 MEM_BYTES_PER_S = 3.35e12
 ITEMSIZE = {"bf16": 2, "f32": 4}
+
+# CGCNN at the JAX package's production width (CGCNNConfig: 93 -> 64, 41
+# Gaussian centres, 50 atoms x 12 neighbours, hidden 128) and the
+# train_cgcnn CLI's batch: 320 synthetic structures = 256 train (8 steps) +
+# 64 val (2 batches) per epoch, one checkpoint per synthetic property.
+CGCNN_SYNTHETIC, CGCNN_BATCH, CGCNN_EPOCHS = 320, 32, 2
+CGCNN_PROPS = {"formation_energy_per_atom": "formation_energy", "band_gap": "band_gap"}
+
+# Evaluate on the first EVAL_SAMPLES parents of the synthetic build: a
+# validation split of 9 at batch 10, so the id list is padded by one.
+EVAL_SAMPLES, EVAL_BATCH = 45, 10
+# the generate-cgcnn phase's cell scale and occupancy threshold (see there)
+COORD_SCALE, CGCNN_OCCUPANCY, CGCNN_MERGE = 12.0, 0.9999, 1.5
 
 FOLDED = ("affine_leaky", "relu_affine", "affine_relu")
 # (name, source, TPU kernel it replaces, rows it covers)
@@ -1388,10 +1426,11 @@ def phase_unet_train_step(data: str, class_weights, card: str):
     return state, batch, cw
 
 
-def profile_step(fn, step_ms: float, tag: str, card: str):
-    """One call of ``fn`` under torch.profiler: device busy ms (kernels and
-    copies), the idle share against the unprofiled ``step_ms``, and the
-    top device ops."""
+def profile_step(fn, step_ms: float, tag: str, card: str,
+                 what: str = "one train step"):
+    """One call of ``fn`` (``what``) under torch.profiler: device busy ms
+    (kernels and copies), the idle share against the unprofiled
+    ``step_ms``, and the top device ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1410,7 +1449,7 @@ def profile_step(fn, step_ms: float, tag: str, card: str):
     for e in dev:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-    print(f"[{tag}] one train step under torch.profiler ({card}): wall "
+    print(f"[{tag}] {what} under torch.profiler ({card}): wall "
           f"{wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms over "
           f"{len(dev)} device ops; unprofiled step {step_ms:.3f} ms, idle share "
           f"{max(0.0, 1 - busy_ms / step_ms):.3f}")
@@ -1742,6 +1781,330 @@ def phase_spatial_parity(tmp: str, unet_data: str, class_weights, card: str):
         torch.cuda.empty_cache()
 
 
+def phase_train_cgcnn(tmp: str, card: str):
+    """``apps.train_cgcnn.main`` at production width, one checkpoint per
+    property; then the train step's and the forward's CUDA-event medians
+    at batch 32 and one profiled train step.  Returns {property: ckpt}."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps import train_cgcnn
+    from icsg3d_torch.config import CGCNNConfig
+    from icsg3d_torch.train.cgcnn import cgcnn_forward, create_cgcnn_state, make_cgcnn_steps
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    n_train = int(0.8 * CGCNN_SYNTHETIC) // CGCNN_BATCH
+    n_val = (CGCNN_SYNTHETIC - int(0.8 * CGCNN_SYNTHETIC)) // CGCNN_BATCH
+    ckpts = {}
+    for prop, synthetic in CGCNN_PROPS.items():
+        ckpt = os.path.join(tmp, f"cgcnn-{synthetic}")
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        hist = train_cgcnn.main(["--synthetic", str(CGCNN_SYNTHETIC),
+                                 "--synthetic-property", synthetic,
+                                 "--epochs", str(CGCNN_EPOCHS),
+                                 "--batch-size", str(CGCNN_BATCH), "--device", DEVICE,
+                                 "--ckpt", ckpt, "--seed", str(SEED)])
+        sync()
+        secs = time.perf_counter() - t0
+        check(len(hist) == CGCNN_EPOCHS and all(h["steps"] == n_train for h in hist),
+              f"train_cgcnn {synthetic}: history {[h['steps'] for h in hist]}")
+        for e, h in enumerate(hist):
+            for split in ("train", "val"):
+                check(all(np.isfinite(v) for v in h[split].values()),
+                      f"train_cgcnn {synthetic} epoch {e}: non-finite {split} "
+                      f"metrics {h[split]}")
+        for name in ("best.npz", "latest.npz", "history.json"):
+            check(os.path.exists(os.path.join(ckpt, name)),
+                  f"train_cgcnn {synthetic} wrote no {name}")
+        check(read_counts() == NO_LAUNCHES, "train_cgcnn launched a conv kernel")
+        ckpts[prop] = ckpt
+        print(f"[train-cgcnn] train_cgcnn.main --synthetic {CGCNN_SYNTHETIC} "
+              f"--synthetic-property {synthetic}: {CGCNN_EPOCHS} epochs x {n_train} "
+              f"steps + {n_val} val batches at batch {CGCNN_BATCH} in {secs:.3f} s "
+              f"({card}), featurization included; epoch times "
+              f"{[round(h['time'], 3) for h in hist]} s; train mse "
+              f"{[round(h['train']['loss'], 4) for h in hist]}, val mae "
+              f"{[round(h['val']['mae'], 4) for h in hist]}")
+
+    state = create_cgcnn_state(CGCNNConfig(), 1e-3, SEED, DEVICE)
+    train_step, _ = make_cgcnn_steps(state.model)
+    graphs = train_cgcnn.graph_arrays_synthetic(CGCNN_BATCH, SEED + 6,
+                                                CGCNNConfig().graph_spec())
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in graphs.items()}
+    step_ms = cuda_median_ms(lambda: train_step(state, batch), runs=20, warmup=3)
+    with torch.inference_mode():
+        fwd_ms = cuda_median_ms(lambda: cgcnn_forward(state.model, batch), runs=20,
+                                warmup=3)
+    print(f"[train-cgcnn] batch {CGCNN_BATCH} ({card}), CUDA-event medians of 20: "
+          f"train_step {step_ms:.3f} ms = {CGCNN_BATCH / step_ms * 1e3:.2f} train "
+          f"graphs/s; forward {fwd_ms:.3f} ms = {CGCNN_BATCH / fwd_ms * 1e3:.2f} "
+          f"predictions/s")
+    profile_step(lambda: train_step(state, batch), step_ms, "cgcnn-train-profile", card)
+    return ckpts
+
+
+def phase_cgcnn_cpu_parity(card: str):
+    """One CGCNN train step and one prediction batch at batch 32, on the
+    card and on the CPU from the same seeded weights and batch, both f32:
+    predictions within 1e-5 of max(1, max|pred|), the loss within 1e-5
+    relative, each parameter's gradient within 1e-4 of its max|g| (f32
+    sums in another order; no TF32)."""
+    import torch
+
+    from icsg3d_torch.apps.train_cgcnn import graph_arrays_synthetic
+    from icsg3d_torch.config import CGCNNConfig
+    from icsg3d_torch.train.cgcnn import cgcnn_forward, create_cgcnn_state, make_cgcnn_steps
+
+    graphs = graph_arrays_synthetic(CGCNN_BATCH, SEED + 7, CGCNNConfig().graph_spec())
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        state = create_cgcnn_state(CGCNNConfig(), 1e-3, SEED, dev)
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in graphs.items()}
+        with torch.no_grad():
+            preds = cgcnn_forward(state.model, batch).cpu()
+        train_step, _ = make_cgcnn_steps(state.model)
+        loss = float(train_step(state, batch)["loss"])
+        out[dev] = (preds, loss, {n: p.grad.detach().cpu()
+                                  for n, p in state.model.named_parameters()})
+    (pg, lg, gg), (pc, lc, gc) = out[DEVICE], out["cpu"]
+    pred_err = float((pg - pc).abs().max())
+    check(pred_err <= 1e-5 * max(1.0, float(pc.abs().max())),
+          f"CGCNN predictions card vs CPU differ by {pred_err:.3e}")
+    rel = abs(lg - lc) / abs(lc)
+    check(rel <= 1e-5, f"CGCNN train step card vs CPU: loss {lg} vs {lc} (rel {rel:.3e})")
+    errs = {n: float((gg[n] - g).abs().max()) / max(float(g.abs().max()), 1e-12)
+            for n, g in gc.items()}
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= 1e-4, f"CGCNN gradient of {worst} card vs CPU: "
+          f"{errs[worst]:.3e} of its max > 1e-4")
+    print(f"[cgcnn-gpu-vs-cpu] batch {CGCNN_BATCH} ({card}): predictions max abs diff "
+          f"{pred_err:.3e} (max |pred| {float(pc.abs().max()):.4f}); loss {lg:.6f} "
+          f"(card) vs {lc:.6f} (cpu), rel {rel:.3e}; {len(errs)} gradients within "
+          f"{errs[worst]:.3e} of their max (worst {worst})")
+
+
+def _quiet(fn, *args):
+    """fn(*args) with its standard output (a CLI's JSON dump) held back."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def phase_predict(tmp: str, ckpts: dict, card: str):
+    """``apps.predict.main`` on the real CIFs with the two checkpoints, on
+    the card and on the CPU: a record per CIF, finite properties, the same
+    parse errors, properties within 1e-5 of max(1, max|value|)."""
+    import numpy as np
+
+    from icsg3d_torch.apps import predict
+
+    spec = ",".join(f"{prop}={ckpt}" for prop, ckpt in ckpts.items())
+    n_cifs = sum(f.endswith(".cif") for f in os.listdir(REAL_CIFS))
+    out, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        argv = [REAL_CIFS, "--ckpt", spec, "--device", dev,
+                "--output", os.path.join(tmp, f"predict-{dev}.json")]
+        sync()
+        t0 = time.perf_counter()
+        out[dev] = _quiet(predict.main, argv)
+        sync()
+        secs[dev] = time.perf_counter() - t0
+    card_recs, cpu_recs = out[DEVICE], out["cpu"]
+    check(len(card_recs) == len(cpu_recs) == n_cifs,
+          f"predict: {len(card_recs)} records for {n_cifs} CIFs")
+    check([r.get("error") for r in card_recs] == [r.get("error") for r in cpu_recs],
+          "predict: the card's parse errors differ from the CPU's")
+    vals = {dev: np.asarray([[r["properties"][p] for p in ckpts] for r in recs
+                             if "properties" in r], np.float64)
+            for dev, recs in out.items()}
+    n_ok = len(vals["cpu"])
+    check(n_ok > 0 and vals[DEVICE].shape == (n_ok, len(ckpts))
+          and bool(np.isfinite(vals[DEVICE]).all()), "predict: missing or non-finite "
+          "properties")
+    err = float(np.abs(vals[DEVICE] - vals["cpu"]).max())
+    check(err <= 1e-5 * max(1.0, float(np.abs(vals["cpu"]).max())),
+          f"predict: card and CPU properties differ by {err:.3e}")
+    print(f"[predict] predict.main on {n_cifs} CIFs x {len(ckpts)} properties "
+          f"({card}): {n_ok} predicted, {n_cifs - n_ok} parse errors (same on the "
+          f"CPU); a smoke timing with the parsing, featurization and two weight "
+          f"loads inside it, not a rate: {secs[DEVICE]:.3f} s on the card, "
+          f"{secs['cpu']:.3f} s on the CPU; max |card - cpu| {err:.3e}")
+
+
+def phase_generate_cgcnn(tmp: str, ckpts: dict, card: str):
+    """``apps.generate --fused --cgcnn-ckpt`` on the blob dataset with the
+    trained checkpoints, one batch: every extracted structure of 1..50
+    atoms carries both properties.  The seeded VAE decodes cells of ~0.4
+    Angstrom, where the CGCNN's 8 Angstrom neighbour search of 50 atoms
+    would walk ~10^5 periodic images per structure, so this run scales the
+    VAE's coordinate outputs (the decoder's output BatchNorm, channels 1-3,
+    x COORD_SCALE) to cells of a few Angstrom.  Without a merge (at the
+    thresholds 0.8 and 0.9999) the seeded models' fused extraction gives
+    every structure more than 50 atoms on the H100, so this run thresholds
+    at CGCNN_OCCUPANCY and merges atoms closer than CGCNN_MERGE Angstrom,
+    as a user would for noisy decodes.  Returns the run's launches."""
+    import numpy as np
+
+    from icsg3d_torch.apps import generate
+    from icsg3d_torch.weights import load_npz, save_npz
+
+    tree = load_npz(os.path.join(tmp, "vae.npz"))
+    bn = tree["params"]["decoder"]["output_bn"]
+    bn["scale"][1:] *= COORD_SCALE
+    bn["bias"][1:] *= COORD_SCALE
+    vae_npz = os.path.join(tmp, "vae-cells.npz")
+    save_npz(vae_npz, tree)
+    out = os.path.join(tmp, "gen-cgcnn")
+    spec = ",".join(f"{prop}={ckpt}" for prop, ckpt in ckpts.items())
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    generate.main(["--data", os.path.join(tmp, "data"), "--base", "syn-1",
+                   "--vae-ckpt", vae_npz, "--unet-ckpt", os.path.join(tmp, "unet.npz"),
+                   "--nsamples", str(BATCH), "--batch-size", str(BATCH),
+                   "--device", DEVICE, "--fused", "--output", out,
+                   "--binary-threshold", str(CGCNN_OCCUPANCY),
+                   "--merge-closer-than", str(CGCNN_MERGE), "--cgcnn-ckpt", spec])
+    sync()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    want = ENCODER_CONVS + DECODER_CONVS + UNET_CONVS
+    check(counts["fwd"] == want, f"generate --cgcnn-ckpt: {counts['fwd']} conv "
+          f"launches, want {want}")
+    with open(os.path.join(out, "results.json")) as f:
+        rows = json.load(f)
+    check(len(rows) == BATCH, f"generate --cgcnn-ckpt: {len(rows)} records")
+    scored = [r for r in rows if 1 <= len(r.get("atoms") or []) <= 50]
+    for r in scored:
+        props = r.get("properties") or {}
+        check(set(props) == set(ckpts) and all(np.isfinite(v) for v in props.values()),
+              f"generate --cgcnn-ckpt: a structure of {len(r['atoms'])} atoms has "
+              f"properties {props}")
+    check(len(scored) > 0, "generate --cgcnn-ckpt: no structure to score: atoms "
+          f"{sorted(len(r.get('atoms') or []) for r in rows)}, cells "
+          f"{[[round(v, 2) for v in r['lattice']] for r in rows[:4]]}")
+    n_valid = sum(bool(r.get("valid")) for r in rows)
+    lat = np.asarray([r["lattice"] for r in rows])
+    print(f"[generate-cgcnn] generate --fused --binary-threshold {CGCNN_OCCUPANCY} "
+          f"--merge-closer-than {CGCNN_MERGE} --cgcnn-ckpt {'+'.join(ckpts)}: "
+          f"{BATCH} samples in {secs:.3f} s ({card}), cells {lat.min():.2f}.."
+          f"{lat.max():.2f} A, atoms {sorted(len(r.get('atoms') or []) for r in rows)}; "
+          f"{len(scored)} structures of "
+          f"1..50 atoms scored ({n_valid} valid), "
+          f"{sum(len(r.get('atoms') or []) > 50 for r in rows)} larger skipped; conv "
+          f"launches {counts['fwd']} = {want} expected")
+    return counts
+
+
+def phase_evaluate(tmp: str, synthetic: str, card: str):
+    """``apps.evaluate.main`` on the synthetic build (sites and site_z
+    stored) at batch 10 with the seeded models, on the card and on the
+    CPU: every validation sample evaluated or skipped, one K1 ``bias`` and
+    23 folded launches per batch, the same n_evaluated and lattices within
+    1e-2 relative on the CPU.  The U-Net part is held on its own: the
+    card's and the CPU's U-Net segment the CPU's reconstruction of the
+    first batch, and their occupancy masks must agree on at least 0.99 of
+    the voxels, and their labels on at least 0.99 of the voxels both call
+    occupied (the card computes in bfloat16, the CPU in float32).  A
+    second card run under torch.profiler gives the device's busy time.
+    Returns the first card run's launches."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps import common, evaluate
+    from icsg3d_torch.apps.generate import segment_grids
+    from icsg3d_torch.config import GridSpec, PipelineConfig, UNetConfig, VAEConfig
+    from icsg3d_torch.data.binning import bin_and_encode
+    from icsg3d_torch.data.splits import data_split
+    from icsg3d_torch.data.store import BatchIterator, GridDataset
+
+    ds = GridDataset(synthetic)
+    _, val_ids = data_split(ds.ids, n=EVAL_SAMPLES, frac=0.8, n_rot=0)
+    n_batches = -(-len(val_ids) // EVAL_BATCH)
+    vae_npz, unet_npz = (os.path.join(tmp, f) for f in ("vae.npz", "unet.npz"))
+
+    def argv(dev):
+        return ["--data", synthetic, "--vae-ckpt", vae_npz, "--unet-ckpt", unet_npz,
+                "--batch-size", str(EVAL_BATCH), "--samples", str(EVAL_SAMPLES),
+                "--device", dev, "--output", os.path.join(tmp, f"eval-{dev}.json")]
+
+    out, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out[dev] = _quiet(evaluate.main, argv(dev))
+        sync()
+        secs[dev] = time.perf_counter() - t0
+        if dev == DEVICE:
+            counts = read_counts()
+    res, cpu = out[DEVICE], out["cpu"]
+    check(res["n_evaluated"] + res["n_skipped"] == len(val_ids),
+          f"evaluate: {res['n_evaluated']} evaluated + {res['n_skipped']} skipped of "
+          f"{len(val_ids)}")
+    per_batch = {"bias": 1, "folded": len(VAE_CONVS) - 1 + UNET_CONVS}
+    want = {**NO_LAUNCHES, "fwd": n_batches * sum(per_batch.values()),
+            **{key: n_batches * n for key, n in per_batch.items()}}
+    check(counts == want, f"evaluate: launches {counts}, want {want}")
+    check(res["n_evaluated"] == cpu["n_evaluated"],
+          f"evaluate: {res['n_evaluated']} evaluated on the card, {cpu['n_evaluated']} "
+          "on the CPU")
+    lg, lc = (np.asarray(r["lattice_pred"], np.float64) for r in (res, cpu))
+    lat_rel = float(np.max(np.abs(lg - lc) / np.abs(lc))) if len(lc) else 0.0
+    check(lat_rel <= 1e-2, f"evaluate: lattices card vs CPU rel {lat_rel:.3e} > 1e-2")
+
+    # the U-Net segment of the first batch on the same input: the CPU's
+    # reconstruction of the CLI's first batch (ids padded with the last,
+    # its conditions, its generator's first noise draw)
+    pipe = PipelineConfig(grid=GridSpec(d=D))
+    ids = (val_ids + val_ids[-1:] * EVAL_BATCH)[:EVAL_BATCH]
+    _, conds, _ = bin_and_encode(np.asarray(ds.arrays["target"]), 10)
+    batch = next(iter(BatchIterator(ds, ids, EVAL_BATCH, fields=("density", "coords"))))
+    cond = torch.from_numpy(conds[[ds.index[sid] for sid in ids]])
+    eps = torch.randn((EVAL_BATCH, 256), generator=torch.Generator().manual_seed(SEED))
+    vae = common.load_vae(VAEConfig(grid=GridSpec(d=D), dtype="float32"), vae_npz,
+                          device="cpu")
+    seg = {}
+    with torch.inference_mode():
+        recon = vae(torch.from_numpy(common.grid_input(batch["density"],
+                                                       batch["coords"])), cond, eps)[0]
+        for dev in (DEVICE, "cpu"):
+            dtype = common.compute_dtype(torch.device(dev))
+            unet = common.load_unet(UNetConfig(dtype=dtype), unet_npz, device=dev)
+            _, _, _, labels, binary = segment_grids(unet, pipe, recon.to(dev))
+            seg[dev] = (labels.cpu().numpy(), binary.cpu().numpy())
+            del unet
+    del vae, recon
+    (lab_g, bin_g), (lab_c, bin_c) = seg[DEVICE], seg["cpu"]
+    occ_agree = float(np.mean(bin_g == bin_c))
+    both = (bin_g > 0) & (bin_c > 0)
+    lab_agree = float(np.mean(lab_g[both] == lab_c[both])) if both.any() else 1.0
+    check(occ_agree >= 0.99, f"evaluate: U-Net occupancy card vs CPU agrees on "
+          f"{occ_agree:.5f} < 0.99 of the voxels")
+    check(lab_agree >= 0.99, f"evaluate: U-Net labels card vs CPU agree on "
+          f"{lab_agree:.5f} < 0.99 of the {int(both.sum())} voxels both call occupied")
+
+    print(f"[evaluate] evaluate.main --samples {EVAL_SAMPLES} at batch {EVAL_BATCH} "
+          f"({card}), a smoke timing with the weight loads inside it, not a rate: "
+          f"{len(val_ids)} validation samples ({n_batches} batch of {EVAL_BATCH}, the "
+          f"last padded) in {secs[DEVICE]:.3f} s on the card, {secs['cpu']:.3f} s on "
+          f"the CPU; n_evaluated {res['n_evaluated']} (the same on the CPU), n_skipped "
+          f"{res['n_skipped']}, n_emd_undefined {res['n_emd_undefined']}, mean EMD "
+          f"{res['mean_emd']}, mean datoms {res['mean_datoms']}; launches {counts} = "
+          f"expected; lattice max rel {lat_rel:.3e}; U-Net segment of the first batch, "
+          f"card vs CPU on the CPU's reconstruction: occupancy agrees on "
+          f"{occ_agree:.5f} of {bin_c.size} voxels, labels on {lab_agree:.5f} of the "
+          f"{int(both.sum())} both call occupied")
+    profile_step(lambda: _quiet(evaluate.main, argv(DEVICE)), secs[DEVICE] * 1e3,
+                 "evaluate-profile", card, what=f"evaluate.main run ({len(val_ids)} "
+                 "samples, weight loads included)")
+    return counts
+
+
 def main() -> None:
     try:
         import torch
@@ -1759,6 +2122,7 @@ def main() -> None:
     phase_build()
     rows = phase_kernels(card, CONV_SHAPES + TRAIN_FWD_SHAPES, BATCH)
     rows += phase_kernels(card, UNET_FWD_SHAPES, UNET_BATCH)
+    rows += phase_kernels(card, CONV_SHAPES, EVAL_BATCH)  # evaluate's batch
     rows += phase_backward_kernels(card, [
         ("dx", DX_SHAPES, BATCH), ("dw", DW_SHAPES, BATCH),
         ("dx", UNET_DX_NEW, UNET_BATCH), ("dw", UNET_TRAIN, UNET_BATCH)])
@@ -1782,14 +2146,20 @@ def main() -> None:
         del ustate, ubatch, cw
         spatial_counts = phase_train_spatial(tmp, synthetic, card)
         phase_spatial_parity(tmp, synthetic, class_weights, card)
+        ckpts = phase_train_cgcnn(tmp, card)
+        phase_cgcnn_cpu_parity(card)
+        phase_predict(tmp, ckpts, card)
+        gen_cgcnn_counts = phase_generate_cgcnn(tmp, ckpts, card)
+        eval_counts = phase_evaluate(tmp, synthetic, card)
 
     # launches on the main paths: generation (fused and host), VAE
-    # training, the two dataset builds, U-Net training, and both trainers
-    # at --spatial
+    # training, the two dataset builds, U-Net training, both trainers at
+    # --spatial, generation with --cgcnn-ckpt, and evaluate
     gen_counts = [{"bias": r["by_epilogue"]["bias"],
                    "folded": sum(r["by_epilogue"][e] for e in FOLDED),
                    "dx": 0, "dw": 0, "vox": 0} for r in runs.values()]
-    paths = gen_counts + [train_counts, vox_counts, unet_counts, spatial_counts]
+    paths = gen_counts + [train_counts, vox_counts, unet_counts, spatial_counts,
+                          gen_cgcnn_counts, eval_counts]
     count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
                  "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox",
                  "conv3d_same[valid]": "fwd_valid",

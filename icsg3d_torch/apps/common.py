@@ -19,8 +19,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from icsg3d_torch.config import UNetConfig, VAEConfig
-from icsg3d_torch.models import ConditionalDFCVAE, UNet3D
+from icsg3d_torch.config import CGCNNConfig, UNetConfig, VAEConfig
+from icsg3d_torch.models import CGCNN, ConditionalDFCVAE, UNet3D
 from icsg3d_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
 from icsg3d_torch.weights import load_flax_variables, load_npz, model_variables
 
@@ -173,7 +173,8 @@ def weights_path(path: Optional[str], which: str = "best") -> Optional[str]:
             raise ValueError(
                 f"{path!r} is an Orbax checkpoint directory, which the port "
                 f"cannot read; export it to .npz where JAX is installed: "
-                f"python {EXPORT_SCRIPT} --vae-ckpt/--unet-ckpt {path} ..."
+                f"python {EXPORT_SCRIPT} --vae-ckpt/--unet-ckpt/--cgcnn-ckpt "
+                f"{path} ..."
             )
         print(
             f"warning: checkpoint dir {path!r} has no {which!r} checkpoint; "
@@ -214,6 +215,44 @@ def load_unet(cfg: UNetConfig, checkpoint: Optional[str], grid_d: int = 32,
     return _finish(UNet3D(cfg, gen), path, device)
 
 
+def load_cgcnn(cfg: CGCNNConfig, checkpoint: Optional[str], device="cuda",
+               seed: int = 0, which: str = "best") -> CGCNN:
+    """CGCNN with weights from ``checkpoint`` (an .npz, or a checkpoint
+    directory of the port's trainer), else a seeded init, on ``device``
+    (raises when it is CUDA and CUDA is unavailable).  It computes in
+    ``cfg.dtype`` (float32) on every device."""
+    device = resolve_device(str(device))
+    path = weights_path(checkpoint, which)
+    gen = torch.Generator().manual_seed(seed)
+    return _finish(CGCNN(cfg, gen), path, device)
+
+
+def cgcnn_predict(model: CGCNN, graphs, batch_size: int = 32) -> np.ndarray:
+    """(n,) predictions for featurized graphs (data/graphs.featurize_batch),
+    in input order, one slice of ``batch_size`` graphs at a time as in the
+    JAX package (icsg3d_tpu/apps/predict.py:64-81).  The masked BN uses the
+    live batch's statistics, so another batching changes the numbers."""
+    device = next(model.parameters()).device
+    keys = ("atom_fea", "nbr_dist", "nbr_idx", "atom_mask")
+    n = len(graphs["atom_fea"])
+    preds = []
+    with torch.inference_mode():
+        for s0 in range(0, n, batch_size):
+            args = [torch.from_numpy(np.ascontiguousarray(graphs[k][s0:s0 + batch_size]))
+                    .to(device) for k in keys]
+            preds.append(model(*args).float().cpu().numpy())
+    return np.concatenate(preds)
+
+
+def parse_property_checkpoints(value: str, parser, flag: str):
+    """``name=dir[,name=dir...]`` -> {name: dir}; a malformed value is a
+    parser error, as in icsg3d_tpu/apps/generate.py:561-570."""
+    try:
+        return dict(kv.split("=", 1) for kv in value.split(",") if kv.strip())
+    except ValueError:
+        parser.error(f"{flag} must be name=dir[,name=dir...], got {value!r}")
+
+
 def grid_input(density: np.ndarray, coords: np.ndarray) -> np.ndarray:
     """(B,d,d,d) + (B,d,d,d,3) -> (B,d,d,d,4) model input."""
     return np.concatenate(
@@ -222,10 +261,11 @@ def grid_input(density: np.ndarray, coords: np.ndarray) -> np.ndarray:
     )
 
 
-def finish_history(args, history):
+def finish_history(args, history, metric: str = "loss"):
     """Write ``<args.ckpt>/history.json`` for a trainer CLI: on ``--resume``
     appended to the earlier run's, truncated to the epochs its checkpoint
-    holds (``args._resumed_epochs``); no loss plot."""
+    holds (``args._resumed_epochs``); no loss plot.  Prints the best
+    validation ``metric``."""
     os.makedirs(args.ckpt, exist_ok=True)
     hist_path = os.path.join(args.ckpt, "history.json")
     if args.resume and os.path.exists(hist_path):
@@ -241,7 +281,7 @@ def finish_history(args, history):
     with open(hist_path, "w") as f:
         json.dump(history, f, indent=1)
     if history:
-        print(f"done; best val loss "
-              f"{min(h['val']['loss'] for h in history):.4f} -> {args.ckpt}")
+        print(f"done; best val {metric} "
+              f"{min(h['val'][metric] for h in history):.4f} -> {args.ckpt}")
     else:
         print(f"done; 0 epochs ran -> {args.ckpt}")

@@ -16,8 +16,12 @@ Weights come from ``.npz`` files exported with tools/export_flax_npz.py.
 
 Latents come from ``np.random.default_rng(seed)`` exactly as in the JAX
 CLI, so both draw the same samples; every batch runs at the full
-``batch_size`` shape and the tail is sliced afterwards.  CGCNN property
-prediction is not ported yet.
+``batch_size`` shape and the tail is sliced afterwards.
+
+``--cgcnn-ckpt name=weights,...`` predicts each property of every
+extracted structure of 1..50 atoms with the CGCNN (float32 on every
+device), each property's weights loaded once, before the records are
+annotated.
 """
 
 from __future__ import annotations
@@ -31,16 +35,23 @@ import numpy as np
 import torch
 
 from icsg3d_torch.apps import common
-from icsg3d_torch.config import GridSpec, PipelineConfig, UNetConfig
+from icsg3d_torch.config import CGCNNConfig, GridSpec, PipelineConfig, UNetConfig
 from icsg3d_torch.crystal.cif import write_cif
 from icsg3d_torch.crystal.structure import Structure
+from icsg3d_torch.data.graphs import featurize_batch
 from icsg3d_torch.ops.extract import extract_atoms
 from icsg3d_torch.ops.grid import to_lattice_params, to_voxel_params, voxel_to_cartesian
 from icsg3d_torch.ops.segmentation import watershed_clustering
 
 
 def _decode_segment(vae, unet, pipe: PipelineConfig, z, cond):
-    M = vae.decode(z, cond)
+    return segment_grids(unet, pipe, vae.decode(z, cond))
+
+
+def segment_grids(unet, pipe: PipelineConfig, M):
+    """Decoded grids M -> (M, lattice, dv, species labels, binary
+    occupancy): the lattice from M's coordinate channels and the U-Net
+    segmentation thresholded at ``pipe.binary_threshold``."""
     lattice = to_lattice_params(M[..., 1:], pipe.grid)
     dv = to_voxel_params(lattice, pipe.grid)
     soft, sig = unet(M)
@@ -333,6 +344,39 @@ def _write_results_csv(rows: Sequence[Dict], path: str) -> None:
         w.writerows(flat)
 
 
+def predict_properties(
+    records: Sequence[Dict],
+    cgcnn_cfg: CGCNNConfig,
+    property_checkpoints: Dict[str, str],
+    batch_size: int = 32,
+    device="cuda",
+) -> None:
+    """Batched CGCNN property prediction over the records that carry a
+    structure (icsg3d_tpu/apps/generate.py:405-455): each property's
+    weights load once, and the records gain a ``properties`` dict in
+    place.  Structures outside 1..max_atoms atoms (the fused extractor
+    emits up to 64) are skipped with a message."""
+    spec = cgcnn_cfg.graph_spec()
+    with_structure = [r for r in records if r.get("structure") is not None]
+    usable = [
+        r for r in with_structure if 0 < len(r["structure"]) <= spec.max_atoms
+    ]
+    skipped = len(with_structure) - len(usable)
+    if skipped:
+        print(
+            f"predict_properties: skipping {skipped} structure(s) outside "
+            f"1..{spec.max_atoms} atoms (CGCNN pad size)", flush=True,
+        )
+    if not usable:
+        return
+    graphs = featurize_batch([r["structure"] for r in usable], spec)
+    for prop, ckpt in property_checkpoints.items():
+        model = common.load_cgcnn(cgcnn_cfg, ckpt, device=device)
+        preds = common.cgcnn_predict(model, graphs, batch_size)
+        for r, p in zip(usable, preds):
+            r.setdefault("properties", {})[prop] = float(p)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Generate crystal structures")
     p.add_argument("--data", required=True, help="packed GridDataset dir")
@@ -342,7 +386,8 @@ def main(argv=None):
     p.add_argument("--unet-ckpt", required=True,
                    help=f".npz of U-Net weights (from {common.EXPORT_SCRIPT})")
     p.add_argument("--cgcnn-ckpt", default=None,
-                   help="dir per property: name=dir,... (not ported yet)")
+                   help="CGCNN weights per property: name=weights,..., each "
+                        "an .npz or a train_cgcnn --ckpt directory")
     p.add_argument("--nsamples", type=int, default=100)
     p.add_argument("--batch-size", type=int, default=20)
     p.add_argument("--var", type=float, default=0.5)
@@ -376,11 +421,6 @@ def main(argv=None):
     if args.save_grids and args.fused:
         p.error("--save-grids requires the host path (drop --fused): the "
                 "fused step keeps grids on the device")
-    if args.cgcnn_ckpt:
-        raise NotImplementedError(
-            "--cgcnn-ckpt: CGCNN is not ported yet; run property prediction "
-            "with python -m icsg3d_tpu.apps.generate"
-        )
     try:
         merge_cutoffs = [
             float(x) for x in str(args.merge_closer_than).split(",") if x != ""
@@ -390,6 +430,9 @@ def main(argv=None):
                 f"floats, got {args.merge_closer_than!r}")
     if not merge_cutoffs:
         merge_cutoffs = [0.0]
+    prop_ckpts = (common.parse_property_checkpoints(args.cgcnn_ckpt, p,
+                                                    "--cgcnn-ckpt")
+                  if args.cgcnn_ckpt else None)
     device = common.resolve_device(args.device)
 
     from icsg3d_torch.data.binning import bin_and_encode
@@ -432,6 +475,9 @@ def main(argv=None):
         merge_sweep=merge_cutoffs if len(merge_cutoffs) > 1 else None,
         **({"keep_grids": True} if args.save_grids else {}),
     )
+
+    if prop_ckpts:
+        predict_properties(records, CGCNNConfig(), prop_ckpts, device=device)
 
     annotate_records(records, float(ds.arrays["target"][row]), args.target)
 

@@ -158,3 +158,40 @@ class PipelineConfig:
     watershed_wmin: int = 8
     watershed_min_convexity: float = 0.8
     cell_angles: Tuple[float, float, float] = (90.0, 90.0, 90.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class CGCNNConfig:
+    """Crystal-graph convnet property regressor (reference: cgcnn/cgcnn.py:145-160).
+
+    Fixed device shapes: graphs padded to ``max_atoms`` nodes with
+    ``max_neighbors`` edges each; bond distances expanded on a Gaussian basis
+    of ``num_bond_features`` centers in [dmin, radius] with spacing ``step``
+    (reference: cgcnn/data.py:75-112,149-155).
+    """
+
+    atom_input_dim: int = 93
+    atom_fea_len: int = 64
+    max_atoms: int = 50
+    max_neighbors: int = 12
+    radius: float = 8.0
+    dmin: float = 0.0
+    step: float = 0.2
+    n_conv: int = 1
+    hidden_dim: int = 128
+    bn_epsilon: float = 1e-5
+    dtype: str = "float32"
+
+    @property
+    def num_bond_features(self) -> int:
+        return self.graph_spec().num_bond_features
+
+    def graph_spec(self):
+        """The featurizer's GraphSpec of these shapes (data/graphs.py owns
+        the basis width)."""
+        from icsg3d_torch.data.graphs import GraphSpec
+
+        return GraphSpec(
+            max_atoms=self.max_atoms, max_neighbors=self.max_neighbors,
+            radius=self.radius, dmin=self.dmin, step=self.step,
+        )

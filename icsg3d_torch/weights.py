@@ -11,7 +11,9 @@ The port's modules keep Flax's names, so the map is mechanical:
 - conv ``kernel`` (DHWIO) and Dense ``kernel`` (in, out) are kept as they
   are (the port computes x @ kernel);
 - BatchNorm params ``scale``/``bias`` -> ``weight``/``bias``;
-  batch_stats ``mean``/``var`` -> ``running_mean``/``running_var``.
+  batch_stats ``mean``/``var`` -> ``running_mean``/``running_var``;
+- CGCNN's masked-BN params ``gamma1``/``beta1``/``gamma2``/``beta2`` keep
+  their names.
 
 ``save_npz``/``load_npz`` need only numpy, so the export script runs where
 torch is not installed.
@@ -82,6 +84,7 @@ _FLAX_LEAVES = {
     "weight": ("params", "scale"),
     "running_mean": ("batch_stats", "mean"),
     "running_var": ("batch_stats", "var"),
+    **{name: ("params", name) for name in ("gamma1", "beta1", "gamma2", "beta2")},
 }
 
 

@@ -35,6 +35,7 @@ def _smoke_shapes():
     out = set()
     fwd = [(chip_smoke.BATCH, s) for s in chip_smoke.CONV_SHAPES + chip_smoke.TRAIN_FWD_SHAPES]
     fwd += [(chip_smoke.UNET_BATCH, s) for s in chip_smoke.UNET_FWD_SHAPES]
+    fwd += [(chip_smoke.EVAL_BATCH, s) for s in chip_smoke.CONV_SHAPES]
     for batch, (_, cin, cout, e, _, idt, _) in fwd:
         if idt == "bf16":
             out.add((batch, e, e, e, cin, cout, "same", False))

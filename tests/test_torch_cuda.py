@@ -678,3 +678,106 @@ def test_f32_dw_kernel_wide_row_on_card(cuda_device):
     torch.cuda.synchronize()
     assert _rel_err(got, kdw.conv3d_dw_reference(x, gy)) <= 1e-3
     assert torch.equal(got, kdw.conv3d_dw_cuda(x, gy))
+
+
+# -- CGCNN and evaluate (no hand-written kernel in CGCNN: f32 matmuls) --------
+
+def _cgcnn_batch(n=32, seed=24):
+    import numpy as np
+
+    from icsg3d_torch.data.graphs import GraphSpec, featurize_batch
+    from icsg3d_torch.data.synthetic import random_structures, synthetic_target
+
+    structures = random_structures(n, seed=seed, kinds=("perovskite", "rocksalt"))
+    graphs = featurize_batch(structures, GraphSpec())
+    graphs["target"] = np.asarray([synthetic_target(s) for s in structures],
+                                  np.float32)
+    return graphs
+
+
+@pytest.mark.cuda
+def test_cgcnn_forward_on_card_matches_cpu(cuda_device):
+    """The full-width CGCNN forward at batch 32 on featurized structures:
+    f32 on the card (TF32 off) against the CPU, within 1e-5 of max|pred|
+    (f32 sums in another order)."""
+    from icsg3d_torch.config import CGCNNConfig
+    from icsg3d_torch.train.cgcnn import cgcnn_forward, create_cgcnn_state
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    graphs = _cgcnn_batch()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = create_cgcnn_state(CGCNNConfig(), 1e-3, 0, dev).model.eval()
+        with torch.no_grad():
+            out[dev] = cgcnn_forward(model, {key: torch.from_numpy(v).to(dev)
+                                             for key, v in graphs.items()}).cpu()
+    assert out["cuda"].dtype == torch.float32 and out["cuda"].shape == (32,)
+    scale = max(float(out["cpu"].abs().max()), 1.0)
+    assert float((out["cuda"] - out["cpu"]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_cgcnn_train_step_on_card_matches_cpu(cuda_device):
+    """One CGCNN train step at batch 32, the card against the CPU from the
+    same weights: loss within 1e-5 relative, every gradient within 1e-4
+    of its max, then the Adam update within 1e-5 of each parameter's
+    max."""
+    from icsg3d_torch.config import CGCNNConfig
+    from icsg3d_torch.train.cgcnn import create_cgcnn_state, make_cgcnn_steps
+
+    graphs = _cgcnn_batch(seed=25)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        state = create_cgcnn_state(CGCNNConfig(), 1e-3, 0, dev)
+        train_step, _ = make_cgcnn_steps(state.model)
+        mets = train_step(state, {key: torch.from_numpy(v).to(dev)
+                                  for key, v in graphs.items()})
+        out[dev] = (float(mets["loss"]),
+                    {n: (p.grad.detach().cpu(), p.detach().cpu())
+                     for n, p in state.model.named_parameters()})
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for n, (g, p) in out["cpu"][1].items():
+        gc, pc = out["cuda"][1][n]
+        assert float((gc - g).abs().max()) <= 1e-4 * max(float(g.abs().max()), 1e-12), n
+        assert float((pc - p).abs().max()) <= 1e-5 * max(float(p.abs().max()), 1.0), n
+
+
+@pytest.mark.cuda
+def test_evaluate_batch_on_card_matches_cpu(cuda_device, tmp_path):
+    """One evaluate batch (d = 8, VAE filters 4, 8, the full-width U-Net,
+    seeded) on the card and on the CPU with the same noise: the same
+    samples evaluated, lattices within 1e-2 relative (bf16 on the card),
+    and per batch one K1 ``bias`` launch (the encoder's last conv) and
+    2 x 2 + 1 + 14 folded ones."""
+    import numpy as np
+
+    from icsg3d_torch.apps import common
+    from icsg3d_torch.apps.evaluate import evaluate_reconstructions
+    from icsg3d_torch.config import (GridSpec, PipelineConfig, UNetConfig,
+                                     VAEConfig, VoxelizerConfig)
+    from icsg3d_torch.data.binning import bin_and_encode
+    from icsg3d_torch.data.synthetic import build_dataset
+
+    grid = GridSpec(d=8)
+    ds = build_dataset(str(tmp_path / "data"), n=4, cfg=VoxelizerConfig(grid=grid),
+                       kinds=("perovskite", "rocksalt"), device="cpu")
+    _, conds, _ = bin_and_encode(np.asarray(ds.arrays["target"]), 10)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        dt = common.compute_dtype(torch.device(dev))
+        vae = common.load_vae(VAEConfig(grid=grid, filters=(4, 8), latent_dim=8,
+                                        dtype=dt), None, device=dev)
+        unet = common.load_unet(UNetConfig(dtype=dt), None, device=dev)
+        before = dict(k.launches_by_epilogue)
+        out[dev] = evaluate_reconstructions(vae, unet, ds, ds.ids, conds,
+                                            batch_size=4, pipe=PipelineConfig(grid=grid))
+        torch.cuda.synchronize()
+        after = k.launches_by_epilogue
+        launched = {e: after[e] - before[e] for e in after}
+        if dev == "cuda":
+            assert launched["bias"] == 1
+            assert sum(launched[e] for e in ("affine_leaky", "relu_affine",
+                                              "affine_relu")) == 2 * 2 + 1 + 14
+    assert out["cuda"]["n_evaluated"] == out["cpu"]["n_evaluated"] == 4
+    lc, lg = (np.asarray(out[d]["lattice_pred"]) for d in ("cpu", "cuda"))
+    assert float(np.max(np.abs(lg - lc) / np.abs(lc))) <= 1e-2

@@ -36,7 +36,8 @@ def _smoke_f32_shapes():
     full-window dx launch chip_smoke checks."""
     out = set()
     for batch, shapes in ((chip_smoke.BATCH, chip_smoke.CONV_SHAPES + chip_smoke.TRAIN_FWD_SHAPES),
-                          (chip_smoke.UNET_BATCH, chip_smoke.UNET_FWD_SHAPES)):
+                          (chip_smoke.UNET_BATCH, chip_smoke.UNET_FWD_SHAPES),
+                          (chip_smoke.EVAL_BATCH, chip_smoke.CONV_SHAPES)):
         for _, cin, cout, e, _, idt, _ in shapes:
             if idt == "f32":
                 out.add((batch, e, e, e, cin, cout, "same", False))

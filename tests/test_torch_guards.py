@@ -32,6 +32,9 @@ VERBATIM = [
     "train/common.py",
     "utils/timeout.py",
     "data/class_weights.py",
+    "crystal/neighbors.py",
+    "data/atom_features.py",
+    "ops/emd.py",
 ]
 
 NO_JAX = """
@@ -74,6 +77,20 @@ hist = tu.main(["--data", sys.argv[1] + "/vox", "--nrot", "1", "--epochs", "1",
                 "--batch-size", "2", "--num-classes", "12", "--device", "cpu",
                 "--ckpt", sys.argv[1] + "/unet"])
 assert len(hist) == 1
+import icsg3d_torch.apps.train_cgcnn as tc
+import icsg3d_torch.apps.predict as tp
+import icsg3d_torch.apps.evaluate as te
+hist = tc.main(["--synthetic", "12", "--epochs", "1", "--batch-size", "4",
+                "--device", "cpu", "--ckpt", sys.argv[1] + "/cgcnn"])
+assert len(hist) == 1
+import os
+cifs = os.path.join(sys.argv[2], "tests", "fixtures", "real_cifs")
+recs = tp.main([cifs, "--ckpt", "fe=" + sys.argv[1] + "/cgcnn", "--device", "cpu"])
+assert sum("properties" in r for r in recs) >= 12
+res = te.main(["--data", sys.argv[1] + "/vox", "--vae-ckpt", "none",
+               "--unet-ckpt", "none", "--filters", "4,8", "--latent", "8",
+               "--num-classes", "12", "--batch-size", "2", "--device", "cpu"])
+assert res["n_evaluated"] + res["n_skipped"] == 2
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "optax", "orbax", "icsg3d_tpu")
              and sys.modules[m] is not None)
@@ -83,11 +100,12 @@ print("NO_JAX_OK")
 
 
 def test_port_imports_and_runs_with_jax_blocked(tmp_path):
-    """generate, train_vae, voxelize and train_unet run end to end with
-    JAX, Flax, optax, Orbax and icsg3d_tpu unimportable."""
+    """generate, train_vae, voxelize, train_unet, train_cgcnn, predict and
+    evaluate run end to end with JAX, Flax, optax, Orbax and icsg3d_tpu
+    unimportable."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
-        [sys.executable, "-c", NO_JAX, str(tmp_path)], cwd=str(tmp_path),
+        [sys.executable, "-c", NO_JAX, str(tmp_path), str(REPO)], cwd=str(tmp_path),
         env=env, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -130,6 +148,19 @@ def test_synthetic_is_a_copy_with_a_device_pass_through():
     assert copy[len(header):] == want
 
 
+@pytest.mark.parametrize("name", ["GraphSpec", "featurize_structure",
+                                  "featurize_batch"])
+def test_graph_featurizer_is_a_verbatim_copy(name):
+    """data/graphs.py: only gaussian_expand is the port's own."""
+    import inspect
+
+    from icsg3d_torch.data import graphs as tgraphs
+    from icsg3d_tpu.data import graphs as jgraphs
+
+    assert inspect.getsource(getattr(tgraphs, name)) == inspect.getsource(
+        getattr(jgraphs, name))
+
+
 def test_batch_iterator_is_a_verbatim_copy():
     import inspect
 
@@ -142,13 +173,20 @@ def test_batch_iterator_is_a_verbatim_copy():
 
 @pytest.mark.parametrize("name", ["GridSpec", "VAEConfig", "UNetConfig",
                                   "PipelineConfig", "VoxelizerConfig",
-                                  "TrainConfig"])
+                                  "TrainConfig", "CGCNNConfig"])
 def test_config_defaults_match_jax(name):
     jcls, tcls = getattr(jcfg, name), getattr(tcfg, name)
     jf = [(f.name, f.type) for f in dataclasses.fields(jcls)]
     tf = [(f.name, f.type) for f in dataclasses.fields(tcls)]
     assert tf == jf
     assert dataclasses.asdict(tcls()) == dataclasses.asdict(jcls())
+
+
+def test_cgcnn_config_bond_width_is_the_featurizers():
+    for kw in ({}, {"radius": 4.0, "step": 0.3}):
+        assert tcfg.CGCNNConfig(**kw).num_bond_features == \
+            jcfg.CGCNNConfig(**kw).num_bond_features
+    assert tcfg.CGCNNConfig().num_bond_features == 41
 
 
 def test_vae_config_checks_grid_like_jax():
@@ -166,9 +204,24 @@ def test_generate_refuses_cuda_when_unavailable(monkeypatch):
         tgen.main(BASE_ARGS)
 
 
-def test_generate_refuses_cgcnn():
-    with pytest.raises(NotImplementedError, match="CGCNN is not ported yet"):
-        tgen.main(BASE_ARGS + ["--device", "cpu", "--cgcnn-ckpt", "fe=dir"])
+def test_generate_rejects_a_malformed_cgcnn_ckpt(capsys):
+    """A --cgcnn-ckpt without name=dir is a usage error with the JAX CLI's
+    message (icsg3d_tpu/apps/generate.py:561-570), before any work."""
+    with pytest.raises(SystemExit) as exc:
+        tgen.main(BASE_ARGS + ["--device", "cpu", "--cgcnn-ckpt", "fe"])
+    assert exc.value.code == 2
+    assert "--cgcnn-ckpt must be name=dir[,name=dir...], got 'fe'" in \
+        capsys.readouterr().err
+
+
+def test_evaluate_refuses_plots():
+    """--plots needs the plotting module, which is not ported: it refuses
+    and names the JAX CLI instead of skipping the plots."""
+    from icsg3d_torch.apps import evaluate
+
+    with pytest.raises(NotImplementedError, match="icsg3d_tpu.apps.evaluate"):
+        evaluate.main(["--data", "nowhere", "--vae-ckpt", "v", "--unet-ckpt", "u",
+                       "--device", "cpu", "--plots", "plots"])
 
 
 def test_orbax_directory_names_the_export_script(tmp_path, capsys):
@@ -209,24 +262,31 @@ def test_voxelize_cuda_refuses_cpu_tensors():
         kv.voxelize_cuda(torch.zeros(1, 4, 3), z, z, z, torch.ones(1, 3), 8, 0.25)
 
 
-@pytest.mark.parametrize("loader", ["load_vae", "load_unet"])
+@pytest.mark.parametrize("loader", ["load_vae", "load_unet", "load_cgcnn"])
 def test_model_loaders_default_to_the_card(loader, monkeypatch):
     """Without a device the loaders ask for CUDA and raise where it is
     missing, instead of quietly building a CPU model."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = (tcfg.VAEConfig(grid=tcfg.GridSpec(d=8), filters=(4, 8), latent_dim=8)
-           if loader == "load_vae" else tcfg.UNetConfig(num_classes=12))
+    cfg = {"load_vae": tcfg.VAEConfig(grid=tcfg.GridSpec(d=8), filters=(4, 8),
+                                      latent_dim=8),
+           "load_unet": tcfg.UNetConfig(num_classes=12),
+           "load_cgcnn": tcfg.CGCNNConfig()}[loader]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         getattr(tcommon, loader)(cfg, None)
 
 
-@pytest.mark.parametrize("app", ["voxelize", "train_unet"])
+@pytest.mark.parametrize("app", ["voxelize", "train_unet", "train_cgcnn",
+                                 "predict", "evaluate"])
 def test_new_clis_refuse_cuda_when_unavailable(app, monkeypatch, tmp_path):
     import importlib
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     mod = importlib.import_module(f"icsg3d_torch.apps.{app}")
-    argv = (["--synthetic", "2", "--out", str(tmp_path / "x")] if app == "voxelize"
-            else ["--data", str(tmp_path)])
+    argv = {"voxelize": ["--synthetic", "2", "--out", str(tmp_path / "x")],
+            "train_unet": ["--data", str(tmp_path)],
+            "train_cgcnn": ["--synthetic", "2", "--ckpt", str(tmp_path / "c")],
+            "predict": [str(tmp_path / "a.cif"), "--ckpt", "fe=none"],
+            "evaluate": ["--data", str(tmp_path), "--vae-ckpt", "v",
+                         "--unet-ckpt", "u"]}[app]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)
