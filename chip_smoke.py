@@ -38,7 +38,11 @@ Phases (any failure exits nonzero, before the result line):
    Bound on max|err| / max|ref|: 1e-2 for bf16 outputs, 1e-4 for f32
    outputs, 1e-3 for dW (f32 out, but sums of 10^3..10^6 bf16 products
    taken in another order).  Each pass's summary line gives its sums and
-   kernel/library and kernel/bound.
+   kernel/library and kernel/bound.  The generation shapes are checked
+   again at evaluate's batch 10 and at the later paths' other batches:
+   1 (view, interpolate's pair encodes), 2 (the encoder: the sweep's
+   encodes) and 4 (the trainers' plot forwards).  The batch 1, 2 and 4
+   rows' errors join the kernels line; their times stay out of its sums.
 4. Generation: ``icsg3d_torch.apps.generate.main`` on a synthetic 32^3
    GridDataset with seeded full-width weights (.npz), 40 samples at batch
    20, once with ``--fused`` and once on the host watershed path.  Checks
@@ -140,14 +144,43 @@ Phases (any failure exits nonzero, before the result line):
    the seeded models, card and ``--device cpu``: every sample evaluated or
    skipped, one K1 ``bias`` and 23 folded launches per batch, the same
    n_evaluated on the CPU and lattices within 1e-2 relative.
+22. Interpolation: ``apps.interpolate.main`` with the VAE checkpoint of
+   phase 6 on the synthetic build of phase 10, a pair (``--ninterps 10``)
+   and ``--sweep-conds``: every strip (12, 32, 32, 32, 4), finite, its
+   endpoints bitwise the input grids, one strip per condition bin of two
+   or more members; one K1 ``bias`` and 4 folded launches per encode
+   batch, 5 folded per decode batch.  One pair card vs CPU (same weights):
+   the decoded frames within 2e-2 of max|CPU| in each channel (density
+   and the three coordinates apart); the time per strip.
+23. The viewer: ``apps.view.main --n 3`` with the checkpoints of phases 6
+   and 11 (the U-Net's background bias shifted so that F1 is not 0 on
+   both sides, ``view_unet``), card and ``--device cpu`` with the same
+   ``--seed``: mse within 2e-2 relative, F1 within 0.02 and above 0 on
+   the CPU; one ``bias`` and 23 folded launches per sample; seconds per
+   sample.
+24. Plots: where matplotlib does not import (the card's machine), both
+   trainer CLIs print ``plots skipped: matplotlib is not installed`` once,
+   write history.json and no plot, and launch exactly their training's
+   kernels; ``evaluate --plots`` and ``interpolate --voxels`` exit 2 with
+   a usage error naming matplotlib, before any load.  Where it imports,
+   the trainers write loss.png and their best-val plots (whose forwards'
+   launches are counted), evaluate its seven PNGs.  The phases before
+   count their trainers' training alone: there the trainers draw no plots
+   (``plots_off``).
+25. Profiling: ``utils/profiling.StepTimer`` over the VAE train step at
+   batch 20 and the U-Net train step at batch 10 (step ms, grids/s, MFU
+   of the analytic FLOP count against the dense bf16 peak), and
+   ``profiling.trace`` around one more step writes a non-empty trace.
 
 It imports nothing of JAX.  The last two stdout lines are the kernels
 JSON object and then ``{"ok": true, "device": {...}}``; the kernels'
-launches count generation with ``--cgcnn-ckpt`` and evaluate too.
+launches count generation with ``--cgcnn-ckpt``, evaluate, interpolate,
+view and the plots phase's trainers too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -269,6 +302,10 @@ CGCNN_PROPS = {"formation_energy_per_atom": "formation_energy", "band_gap": "ban
 # Evaluate on the first EVAL_SAMPLES parents of the synthetic build: a
 # validation split of 9 at batch 10, so the id list is padded by one.
 EVAL_SAMPLES, EVAL_BATCH = 45, 10
+# interpolate: steps per strip (the CLI's default); view: samples per run;
+# the plots phase's U-Net run: parents (80 train = 8 steps, 20 val = 2
+# batches); the profiling phase: steps per StepTimer run
+INTERPS, VIEW_N, PLOTS_UNET_SAMPLES, PROFILE_STEPS = 10, 3, 100, 12
 # the generate-cgcnn phase's cell scale and occupancy threshold (see there)
 COORD_SCALE, CGCNN_OCCUPANCY, CGCNN_MERGE = 12.0, 0.9999, 1.5
 
@@ -2105,6 +2142,397 @@ def phase_evaluate(tmp: str, synthetic: str, card: str):
     return counts
 
 
+@contextlib.contextmanager
+def plots_off():
+    """The phases that count a trainer's launches exactly count its
+    training alone: inside this block the trainers draw no best-val plots
+    (the card's machine has no matplotlib anyway).  ``phase_plots`` counts
+    the plot forwards where matplotlib imports."""
+    from icsg3d_torch import viz
+
+    available = viz.available
+    viz.available = lambda: False
+    try:
+        yield
+    finally:
+        viz.available = available
+
+
+def _seconds(fn, *args):
+    """(fn(*args), wall seconds of it, the device synchronised)."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def phase_interpolate(tmp: str, synthetic: str, card: str):
+    """``apps.interpolate.main`` with the trained VAE checkpoint on the
+    synthetic build: a pair (--ninterps 10) and the per-bin sweep.  Each
+    strip is (12, 32, 32, 32, 4), finite, its endpoints bitwise the input
+    grids; one strip per bin of two or more members; K1 ``bias`` once and
+    K3 four times per encode batch, K3 five times per decode batch.  One
+    pair on the card against the CPU (same weights; bfloat16 convs on the
+    card, float32 on the CPU): the decoded frames within 2e-2 of max|CPU|,
+    each channel against its own.  Returns the two runs' launches."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps import common, interpolate
+    from icsg3d_torch.config import GridSpec, VAEConfig
+    from icsg3d_torch.data.binning import bin_and_encode
+    from icsg3d_torch.data.store import GridDataset
+
+    ds = GridDataset(synthetic)
+    bin_idx, conds, _ = bin_and_encode(np.asarray(ds.arrays["target"]), 10)
+    ckpt = os.path.join(tmp, "vae-ckpt")
+    base = ["--data", synthetic, "--vae-ckpt", ckpt, "--ninterps", str(INTERPS),
+            "--device", DEVICE]
+    encode = {"bias": 1, "folded": ENCODER_CONVS - 1}
+    decode = {"folded": DECODER_CONVS}
+
+    def want(n_strips, n_encodes):
+        w = dict(NO_LAUNCHES, bias=n_encodes * encode["bias"],
+                 folded=n_strips * decode["folded"] + n_encodes * encode["folded"])
+        w["fwd"] = w["bias"] + w["folded"]
+        return w
+
+    def check_strip(row, ia, ib, label):
+        check(row.shape == (INTERPS + 2, D, D, D, 4) and bool(np.isfinite(row).all()),
+              f"interpolate {label}: strip {row.shape}, finite {np.isfinite(row).all()}")
+        for end, i in ((row[0], ia), (row[-1], ib)):
+            x = common.grid_input(np.asarray(ds.arrays["density"][i])[None],
+                                  np.asarray(ds.arrays["coords"][i])[None])[0]
+            check(np.array_equal(end, x), f"interpolate {label}: an endpoint is not "
+                  "the input grid")
+
+    ids = ds.ids[:2]
+    out = os.path.join(tmp, "interp-pair")
+    reset_counts()
+    grids, pair_s = _seconds(interpolate.main, base + ["--a", ids[0], "--b", ids[1],
+                                                       "--output", out])
+    pair = read_counts()
+    check(pair == want(1, 2), f"interpolate pair: launches {pair}, want {want(1, 2)}")
+    check_strip(grids, ds.index[ids[0]], ds.index[ids[1]], "pair")
+    check(np.array_equal(np.load(os.path.join(out, "interpolation.npy")), grids),
+          "interpolate pair: interpolation.npy is not the strip")
+
+    out = os.path.join(tmp, "interp-sweep")
+    reset_counts()
+    (rows, meta), sweep_s = _seconds(interpolate.main,
+                                     base + ["--sweep-conds", "--output", out])
+    sweep = read_counts()
+    full = [b for b in range(10) if (bin_idx == b).sum() >= 2]
+    check([m["bin"] for m in meta] == full, f"interpolate sweep: strips for bins "
+          f"{[m['bin'] for m in meta]}, bins with two or more members {full}")
+    check(sweep == want(len(rows), len(rows)), f"interpolate sweep: launches {sweep}, "
+          f"want {want(len(rows), len(rows))}")
+    for row, m in zip(rows, meta):
+        check_strip(row, ds.index[m["a"]], ds.index[m["b"]], f"bin {m['bin']}")
+    with open(os.path.join(out, "sweep.json")) as f:
+        check(json.load(f) == meta, "interpolate sweep: sweep.json differs")
+
+    # one pair, card against the CPU, and the card's time per strip
+    ia, ib = ds.index[ids[0]], ds.index[ids[1]]
+    x = [common.grid_input(np.asarray(ds.arrays["density"][i])[None],
+                           np.asarray(ds.arrays["coords"][i])[None])[0] for i in (ia, ib)]
+    strips = {}
+    for dev in (DEVICE, "cpu"):
+        dtype = common.compute_dtype(torch.device(dev))
+        vae = common.load_vae(VAEConfig(grid=GridSpec(d=D), dtype=dtype), ckpt,
+                              device=dev)
+        strips[dev] = interpolate.interpolate_latents(vae, x[0], conds[ia], x[1],
+                                                      conds[ib], INTERPS)
+        if dev == DEVICE:
+            times = [_seconds(interpolate.interpolate_latents, vae, x[0], conds[ia],
+                              x[1], conds[ib], INTERPS)[1] for _ in range(6)][1:]
+        del vae
+    # each channel (density, three coordinates) against its own max|CPU|
+    # over the decoded frames (the endpoints are the inputs on both)
+    mids = {dev: s[1:-1].reshape(-1, s.shape[-1]) for dev, s in strips.items()}
+    refs = np.abs(mids["cpu"]).max(axis=0)
+    errs = np.abs(mids[DEVICE] - mids["cpu"]).max(axis=0)
+    check(np.array_equal(strips[DEVICE][[0, -1]], strips["cpu"][[0, -1]]),
+          "interpolate: the card's and the CPU's endpoints differ")
+    for c, (err, ref) in enumerate(zip(errs, refs)):
+        check(err <= 2e-2 * ref, f"interpolate: card vs CPU channel {c} differs by "
+              f"{err:.3e} > 2e-2 x its max|CPU| {ref:.3e}")
+    per_channel = ", ".join(f"ch{c} {e:.3e} = {e / r:.3e} of {r:.3e}"
+                            for c, (e, r) in enumerate(zip(errs, refs)))
+    strip_ms = statistics.median(times) * 1e3
+    print(f"[interpolate] interpolate.main ({card}): pair ({INTERPS}+2 grids) in "
+          f"{pair_s:.3f} s, launches {pair}; --sweep-conds: {len(rows)} strips (bins "
+          f"{full}) in {sweep_s:.3f} s, launches {sweep} = expected (K1 bias once and "
+          f"K3 {encode['folded']} times per encode batch, K3 {decode['folded']} times "
+          f"per decode batch); weight loads inside both; interpolate_latents alone: "
+          f"{strip_ms:.3f} ms per strip (median of 5, host clock, synchronised); card "
+          f"vs CPU decoded frames, max |diff| per channel against its own max|CPU|: "
+          f"{per_channel} (bound 2e-2 each)")
+    return pair, sweep
+
+
+def view_unet(tmp: str, synthetic: str) -> str:
+    """The trained U-Net checkpoint with head_soft's background bias
+    shifted so that the background class takes over half the probability
+    at about half the voxels of the viewed reconstructions (the CPU's, f32,
+    with view's noise).  After two epochs at the CLI's learning rate the
+    U-Net puts no class over 0.5 anywhere, which leaves every F1 at 0 and
+    the card-vs-CPU F1 check empty.  Returns the .npz path."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps import common
+    from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
+    from icsg3d_torch.data.binning import bin_and_encode
+    from icsg3d_torch.data.splits import data_split
+    from icsg3d_torch.data.store import GridDataset
+    from icsg3d_torch.weights import load_npz, save_npz
+
+    ds = GridDataset(synthetic)
+    _, conds, _ = bin_and_encode(np.asarray(ds.arrays["target"]), 10)
+    rows = [ds.index[i] for i in data_split(ds.ids, frac=0.8, n_rot=0)[1][:VIEW_N]]
+    cfg = VAEConfig(grid=GridSpec(d=D), dtype="float32")
+    vae = common.load_vae(cfg, os.path.join(tmp, "vae-ckpt"), device="cpu")
+    ckpt = os.path.join(tmp, "unet-ckpt", "best.npz")
+    unet = common.load_unet(UNetConfig(dtype="float32"), ckpt, device="cpu")
+    gen = torch.Generator().manual_seed(SEED)  # view's noise, in view's order
+    eps = torch.cat([torch.randn((1, cfg.latent_dim), generator=gen) for _ in rows])
+    x = common.grid_input(np.asarray(ds.arrays["density"][rows]),
+                          np.asarray(ds.arrays["coords"][rows]))
+    with torch.inference_mode():
+        recon = vae(torch.from_numpy(x), torch.from_numpy(conds[rows]), eps)[0]
+        soft = unet(recon)[0].double()
+    margin = soft[..., 0] - torch.logsumexp(soft[..., 1:], dim=-1)
+    tree = load_npz(ckpt)
+    tree["params"]["head_soft"]["bias"][0] -= float(margin.median())
+    path = os.path.join(tmp, "unet-view.npz")
+    save_npz(path, tree)
+    return path
+
+
+def phase_view(tmp: str, synthetic: str, card: str):
+    """``apps.view.main`` on VIEW_N validation samples of the synthetic
+    build with the trained VAE and the trained U-Net (its background bias
+    shifted, ``view_unet``), on the card and on the CPU with the same
+    --seed (the same noise): one K1 ``bias`` and 23 K3 launches per
+    sample, mse within 2e-2 relative and F1 within 0.02 of the CPU's.
+    Returns the card run's launches."""
+    import numpy as np
+
+    from icsg3d_torch.apps import view
+
+    unet = view_unet(tmp, synthetic)
+
+    def argv(dev):
+        return ["--data", synthetic, "--vae-ckpt", os.path.join(tmp, "vae-ckpt"),
+                "--unet-ckpt", unet, "--n", str(VIEW_N),
+                "--seed", str(SEED), "--device", dev,
+                "--output", os.path.join(tmp, f"view-{dev}")]
+
+    recs, secs = {}, {}
+    for dev in (DEVICE, "cpu"):
+        reset_counts()
+        recs[dev], secs[dev] = _seconds(_quiet, view.main, argv(dev))
+        if dev == DEVICE:
+            counts = read_counts()
+    per = {"bias": 1, "folded": len(VAE_CONVS) - 1 + UNET_CONVS}
+    want = dict(NO_LAUNCHES, fwd=VIEW_N * sum(per.values()),
+                **{k: VIEW_N * n for k, n in per.items()})
+    check(counts == want, f"view: launches {counts}, want {want}")
+    got, cpu = recs[DEVICE], recs["cpu"]
+    check([r["id"] for r in got] == [r["id"] for r in cpu] and len(got) == VIEW_N,
+          f"view: ids {[r['id'] for r in got]} vs {[r['id'] for r in cpu]}")
+    check(all(np.isfinite([r["mse"], r["f1"]]).all() for r in got),
+          f"view: non-finite records {got}")
+    mse_rel = max(abs(g["mse"] - c["mse"]) / abs(c["mse"]) for g, c in zip(got, cpu))
+    f1_abs = max(abs(g["f1"] - c["f1"]) for g, c in zip(got, cpu))
+    check(mse_rel <= 2e-2, f"view: mse card vs CPU rel {mse_rel:.3e} > 2e-2")
+    check(f1_abs <= 0.02, f"view: F1 card vs CPU differs by {f1_abs:.4f} > 0.02")
+    check(all(r["f1"] > 0 for r in cpu), f"view: an F1 of 0 on the CPU {cpu}")
+    print(f"[view] view.main --n {VIEW_N} ({card}), a smoke timing with the weight "
+          f"loads inside it: {secs[DEVICE]:.3f} s on the card = "
+          f"{secs[DEVICE] / VIEW_N:.3f} s per sample, {secs['cpu']:.3f} s on the CPU; "
+          f"records {[(r['id'], round(r['mse'], 5), round(r['f1'], 4)) for r in got]}; "
+          f"card vs CPU mse max rel {mse_rel:.3e} (bound 2e-2), F1 max |diff| "
+          f"{f1_abs:.4f} (bound 0.02); launches {counts} = expected")
+    return counts
+
+
+def phase_plots(tmp: str, synthetic: str, card: str):
+    """The plots rule at production width.  Without matplotlib (the card's
+    machine): both trainers print the skip line once, write history.json
+    and no plot, and train with exactly their training launches;
+    ``evaluate --plots`` and ``interpolate --voxels`` exit with a usage
+    error naming matplotlib.  With it: the trainers write loss.png and
+    their best-val plots (the plot forwards' launches counted: VAE one
+    ``bias`` and 14 folded, U-Net 14 folded per refresh), ``evaluate
+    --plots`` its seven PNGs, interpolate its strip PNGs.  Returns the
+    trainers' launches."""
+    import contextlib
+    import io
+
+    from icsg3d_torch import viz
+    from icsg3d_torch.apps import evaluate, interpolate, train_unet, train_vae
+
+    have = viz.available()
+    n_unet = PLOTS_UNET_SAMPLES
+    runs = [
+        ("vae", train_vae, ["--data", os.path.join(tmp, "train-data"), "--unet-ckpt",
+                            os.path.join(tmp, "unet.npz"), "--batch-size", str(BATCH)],
+         TRAIN_PARENTS, BATCH, {"fwd": FWD_PER_STEP, "bias": FWD_PER_STEP,
+                                "dx": DX_PER_STEP, "dw": DW_PER_STEP},
+         {"fwd": FWD_PER_STEP, "bias": 1 + 2 * len(UNET_PREFIX),
+          "folded": len(VAE_CONVS) - 1},
+         {"bias": 1, "folded": len(VAE_CONVS) - 1 + DECODER_CONVS},
+         ["latent_kde.png", "reconstructions.png", "samples.png"]),
+        ("unet", train_unet, ["--data", synthetic, "--samples", str(n_unet),
+                              "--batch-size", str(UNET_BATCH)],
+         n_unet, UNET_BATCH, {"fwd": UNET_CONVS_N, "bias": UNET_CONVS_N,
+                              "dx": UNET_CONVS_N - 1, "dw": UNET_CONVS_N},
+         {"fwd": UNET_CONVS_N, "folded": UNET_CONVS_N}, {"folded": UNET_CONVS_N},
+         ["segmentations_best.png", "segmentations_binary_best.png"]),
+    ]
+    total = dict(NO_LAUNCHES)
+    notes = []
+    for label, app, argv, parents, batch, per_train, per_eval, per_plot, pngs in runs:
+        ckpt = os.path.join(tmp, f"plots-{label}")
+        out = io.StringIO()
+        reset_counts()
+        with contextlib.redirect_stdout(out):
+            hist, secs = _seconds(app.main, argv + [
+                "--epochs", "1", "--nrot", "0", "--device", DEVICE, "--ckpt", ckpt,
+                "--seed", str(SEED), "--plot-every", "1"])
+        counts = read_counts()
+        n_train = int(0.8 * parents) // batch
+        n_val = (parents - int(0.8 * parents)) // batch
+        # one epoch: its finite val loss is the first best, one refresh
+        events = 1 if have else 0
+        want = dict(NO_LAUNCHES)
+        for per, n in ((per_train, n_train), (per_eval, n_val), (per_plot, events)):
+            for key, k in per.items():
+                want[key] += n * k
+        want["fwd"] += events * sum(per_plot.values())
+        check(counts == want, f"plots {label}: launches {counts}, want {want} "
+              f"({n_train} train + {n_val} eval steps, {events} plot refreshes)")
+        skips = out.getvalue().count(viz.PLOTS_SKIPPED)
+        files = set(os.listdir(ckpt))
+        check("history.json" in files and len(hist) == 1, f"plots {label}: history")
+        if have:
+            check(skips == 0 and "loss.png" in files and events == 1
+                  and sorted(os.listdir(os.path.join(ckpt, "plots"))) == pngs,
+                  f"plots {label}: files {sorted(files)}, {events} refreshes")
+        else:
+            check(skips == 1 and not {"loss.png", "plots"} & files,
+                  f"plots {label}: {skips} skip lines, files {sorted(files)}")
+        total = {key: total[key] + counts[key] for key in total}
+        notes.append(f"{label} 1 epoch in {secs:.3f} s, {skips} skip line, "
+                     f"{events} plot refreshes, launches {counts} = expected")
+
+    eval_argv = ["--data", synthetic, "--vae-ckpt", os.path.join(tmp, "vae.npz"),
+                 "--unet-ckpt", os.path.join(tmp, "unet.npz"), "--batch-size",
+                 str(EVAL_BATCH), "--samples", str(EVAL_SAMPLES), "--device", DEVICE,
+                 "--plots", os.path.join(tmp, "eval-plots")]
+    interp_argv = ["--data", synthetic, "--vae-ckpt", os.path.join(tmp, "vae-ckpt"),
+                   "--sweep-conds", "--voxels", "--device", DEVICE]
+    if have:
+        _quiet(evaluate.main, eval_argv)
+        made = sorted(os.listdir(os.path.join(tmp, "eval-plots")))
+        check(made == sorted([f"{k}_{a}.png" for k in ("parity", "err_hist")
+                              for a in "abc"] + ["emd_hist.png"]),
+              f"evaluate --plots wrote {made}")
+        strips = [f for f in os.listdir(os.path.join(tmp, "interp-sweep"))
+                  if f.endswith(".npy")]
+        check(all(os.path.exists(os.path.join(tmp, "interp-sweep", f[:-4] + ".png"))
+                  for f in strips), "interpolate: a strip has no PNG")
+        notes.append(f"evaluate --plots wrote {len(made)} PNGs; interpolate's "
+                     f"{len(strips)} strips have their PNGs")
+    else:
+        for name, app, argv in (("evaluate --plots", evaluate, eval_argv),
+                                ("interpolate --voxels", interpolate, interp_argv)):
+            err = io.StringIO()
+            reset_counts()
+            with contextlib.redirect_stderr(err):
+                try:
+                    app.main(argv)
+                    code = 0
+                except SystemExit as e:
+                    code = e.code
+            check(code == 2 and "matplotlib is not installed" in err.getvalue()
+                  and read_counts() == NO_LAUNCHES,
+                  f"{name} without matplotlib: exit {code}, {err.getvalue()!r}")
+            notes.append(f"{name} exits 2 before any load: "
+                         f"{err.getvalue().strip().splitlines()[-1]!r}")
+    print(f"[plots] matplotlib {'imports' if have else 'is not installed'} here "
+          f"({card}): " + "; ".join(notes))
+    return total
+
+
+def phase_profiling(tmp: str, synthetic: str, card: str):
+    """``utils/profiling.StepTimer`` over PROFILE_STEPS train steps of the
+    VAE (batch 20, the seeded 95-class U-Net for the DFC loss) and of the
+    U-Net (batch 10): step ms, grids/s and MFU from the analytic FLOP count
+    against the dense bf16 peak; ``profiling.trace`` around one more step
+    must write a non-empty Chrome trace."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps import common
+    from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
+    from icsg3d_torch.data.store import GridDataset
+    from icsg3d_torch.train.unet import create_unet_state, make_unet_steps, prepare_unet_batch
+    from icsg3d_torch.train.vae import create_vae_state, make_vae_steps
+    from icsg3d_torch.utils import profiling
+
+    vcfg, ucfg = VAEConfig(grid=GridSpec(d=D)), UNetConfig()
+    unet = common.load_unet(ucfg, os.path.join(tmp, "unet.npz"), device=DEVICE)
+    vstate = create_vae_state(vcfg, 5e-4, SEED, DEVICE)
+    vae_train, _ = make_vae_steps(vstate.model, unet)
+    train_ds = GridDataset(os.path.join(tmp, "train-data"))
+    cond = np.zeros((BATCH, vcfg.cond_bins), np.float32)
+    cond[np.arange(BATCH), np.arange(BATCH) % vcfg.cond_bins] = 1.0
+    vbatch = {"density": torch.from_numpy(np.array(train_ds.arrays["density"][:BATCH])),
+              "abc": torch.from_numpy(np.array(train_ds.arrays["lattice"][:BATCH, :3])),
+              "cond": torch.from_numpy(cond)}
+    vbatch = {k: v.to(DEVICE) for k, v in vbatch.items()}
+    eps = torch.randn(BATCH, vcfg.latent_dim, generator=torch.Generator().manual_seed(
+        SEED + 6)).to(DEVICE)
+    ustate = create_unet_state(ucfg, 3e-6, SEED, DEVICE)
+    unet_train, _ = make_unet_steps(ustate.model)
+    ds = GridDataset(synthetic)
+    raw = {k: np.asarray(ds.arrays[k][:UNET_BATCH]) for k in ("density", "lattice",
+                                                              "species")}
+    ubatch = {k: torch.from_numpy(v).to(DEVICE)
+              for k, v in prepare_unet_batch(raw, 95, device_coords=True).items()}
+    steps = [
+        ("VAE", lambda: vae_train(vstate, vbatch, eps), BATCH,
+         profiling.vae_train_step_flops(vcfg, ucfg, BATCH)),
+        ("U-Net", lambda: unet_train(ustate, ubatch), UNET_BATCH,
+         profiling.unet_train_step_flops(ucfg, D, UNET_BATCH)),
+    ]
+    for label, step, batch, flops in steps:
+        timer = profiling.StepTimer(batch, flops_per_step=flops, warmup=2,
+                                    device=DEVICE)
+        for _ in range(PROFILE_STEPS):
+            step()
+            stats = timer.tick()
+        check(stats is not None and np.isfinite(stats["mfu"]) and stats["mfu"] > 0,
+              f"profiling {label}: StepTimer gave {stats}")
+        log_dir = os.path.join(tmp, f"trace-{label}")
+        with profiling.trace(log_dir):
+            step()
+            sync()
+        size = os.path.getsize(os.path.join(log_dir, "trace.json"))
+        check(size > 0, f"profiling {label}: empty trace")
+        print(f"[profiling] {label} train step at batch {batch} ({card}), StepTimer "
+              f"over {PROFILE_STEPS - 2} steps after 2 of warm-up: "
+              f"{stats['step_ms']:.3f} ms per step, {stats['items_per_sec']:.2f} "
+              f"grids/s, {flops / 1e9:.3f} GFLOP per step (analytic), MFU "
+              f"{stats['mfu']:.4f} of the dense bf16 peak "
+              f"{profiling.PEAK_FLOPS['h100'] / 1e12:.1f} TFLOP/s; trace() wrote "
+              f"{size} bytes")
+
+
 def main() -> None:
     try:
         import torch
@@ -2123,6 +2551,13 @@ def main() -> None:
     rows = phase_kernels(card, CONV_SHAPES + TRAIN_FWD_SHAPES, BATCH)
     rows += phase_kernels(card, UNET_FWD_SHAPES, UNET_BATCH)
     rows += phase_kernels(card, CONV_SHAPES, EVAL_BATCH)  # evaluate's batch
+    # the later paths' other batches, at the same bounds: view's samples
+    # and interpolate's pair encodes (1), the sweep's encodes (2), the
+    # trainers' plot forwards (4, where matplotlib imports).  Their errors
+    # join the kernels line, their times stay out of its sums.
+    checked = phase_kernels(card, CONV_SHAPES, 1)
+    checked += phase_kernels(card, CONV_SHAPES[:ENCODER_CONVS], 2)
+    checked += phase_kernels(card, CONV_SHAPES, 4)
     rows += phase_backward_kernels(card, [
         ("dx", DX_SHAPES, BATCH), ("dw", DW_SHAPES, BATCH),
         ("dx", UNET_DX_NEW, UNET_BATCH), ("dw", UNET_TRAIN, UNET_BATCH)])
@@ -2135,31 +2570,40 @@ def main() -> None:
         vae, unet, runs = phase_main_path(tmp, card)
         phase_breakdown(vae, unet, card)
         phase_cpu_parity(vae, unet)
-        train_counts = phase_train(tmp, card)
+        with plots_off():
+            train_counts = phase_train(tmp, card)
         state, batch, eps = phase_train_step(tmp, unet, card)
         phase_train_cpu_parity(state, unet, batch, eps)
         del state, batch, eps, vae, unet
         synthetic, vox_counts = phase_voxelize(tmp, card)
-        unet_counts, class_weights = phase_train_unet(tmp, synthetic, card)
+        with plots_off():
+            unet_counts, class_weights = phase_train_unet(tmp, synthetic, card)
         ustate, ubatch, cw = phase_unet_train_step(synthetic, class_weights, card)
         phase_unet_train_cpu_parity(ustate, ubatch, cw)
         del ustate, ubatch, cw
-        spatial_counts = phase_train_spatial(tmp, synthetic, card)
+        with plots_off():
+            spatial_counts = phase_train_spatial(tmp, synthetic, card)
         phase_spatial_parity(tmp, synthetic, class_weights, card)
         ckpts = phase_train_cgcnn(tmp, card)
         phase_cgcnn_cpu_parity(card)
         phase_predict(tmp, ckpts, card)
         gen_cgcnn_counts = phase_generate_cgcnn(tmp, ckpts, card)
         eval_counts = phase_evaluate(tmp, synthetic, card)
+        interp_counts = phase_interpolate(tmp, synthetic, card)
+        view_counts = phase_view(tmp, synthetic, card)
+        plots_counts = phase_plots(tmp, synthetic, card)
+        phase_profiling(tmp, synthetic, card)
 
     # launches on the main paths: generation (fused and host), VAE
     # training, the two dataset builds, U-Net training, both trainers at
-    # --spatial, generation with --cgcnn-ckpt, and evaluate
+    # --spatial, generation with --cgcnn-ckpt, evaluate, interpolate (pair
+    # and sweep), view and the plots phase's trainers
     gen_counts = [{"bias": r["by_epilogue"]["bias"],
                    "folded": sum(r["by_epilogue"][e] for e in FOLDED),
                    "dx": 0, "dw": 0, "vox": 0} for r in runs.values()]
     paths = gen_counts + [train_counts, vox_counts, unet_counts, spatial_counts,
-                          gen_cgcnn_counts, eval_counts]
+                          gen_cgcnn_counts, eval_counts, *interp_counts, view_counts,
+                          plots_counts]
     count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
                  "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox",
                  "conv3d_same[valid]": "fwd_valid",
@@ -2177,7 +2621,8 @@ def main() -> None:
             "source": source,
             "replaces": replaces,
             "launches": sum(p.get(count_key[entry], 0) for p in paths),
-            "max_abs_err": max(r["abs_err"] for r in mine),
+            "max_abs_err": max(r["abs_err"] for r in mine
+                               + [r for r in checked if covers(r)]),
             "ms": sum(r["ms"] for r in mine),
             "plain_ms": sum(r["plain_ms"] for r in mine),
             "bound_ms": sum(r["bound_ms"] for r in mine),

@@ -261,11 +261,37 @@ def grid_input(density: np.ndarray, coords: np.ndarray) -> np.ndarray:
     )
 
 
-def finish_history(args, history, metric: str = "loss"):
+def plots_available() -> bool:
+    """Whether matplotlib imports here; where it does not, prints that the
+    plots are skipped (the run writes its data without its PNGs)."""
+    from icsg3d_torch import viz
+
+    if viz.available():
+        return True
+    print(viz.PLOTS_SKIPPED)
+    return False
+
+
+def plot_dir(args) -> Optional[str]:
+    """A trainer CLI's best-val plot directory, ``<args.ckpt>/plots``, where
+    matplotlib imports; elsewhere None (``plots_available``)."""
+    return os.path.join(args.ckpt, "plots") if plots_available() else None
+
+
+def require_plots(parser, flag: str) -> None:
+    """An explicit request for plots (``flag``) where matplotlib does not
+    import is a usage error, raised before any model loads."""
+    from icsg3d_torch import viz
+
+    if not viz.available():
+        parser.error(f"{flag} draws plots, and matplotlib is not installed")
+
+
+def finish_history(args, history, metric: str = "loss", plots: bool = False):
     """Write ``<args.ckpt>/history.json`` for a trainer CLI: on ``--resume``
     appended to the earlier run's, truncated to the epochs its checkpoint
-    holds (``args._resumed_epochs``); no loss plot.  Prints the best
-    validation ``metric``."""
+    holds (``args._resumed_epochs``); with ``plots`` also the loss curves,
+    ``<args.ckpt>/loss.png``.  Prints the best validation ``metric``."""
     os.makedirs(args.ckpt, exist_ok=True)
     hist_path = os.path.join(args.ckpt, "history.json")
     if args.resume and os.path.exists(hist_path):
@@ -278,6 +304,12 @@ def finish_history(args, history, metric: str = "loss"):
             history = prev + history
         except (ValueError, OSError):
             pass  # unreadable prior history: keep this run's alone
+    if plots:
+        from icsg3d_torch import viz
+
+        viz.plot_losses([h["train"][metric] for h in history],
+                        [h["val"][metric] for h in history],
+                        os.path.join(args.ckpt, "loss.png"))
     with open(hist_path, "w") as f:
         json.dump(history, f, indent=1)
     if history:

@@ -13,14 +13,17 @@ count| and the per-axis lattice-parameter errors.
 The noise comes from ``torch.Generator().manual_seed(seed)``, one (batch,
 latent) draw per batch on the CPU, so the card and the CPU get the same
 numbers; JAX draws it from ``jax.random.split`` per batch, which
-``evaluate_reconstructions(noise=...)`` can take instead.  ``--plots``
-needs the plotting module, which the port does not have yet.
+``evaluate_reconstructions(noise=...)`` can take instead.  ``--plots DIR``
+writes the lattice-parameter parity scatters and error histograms and the
+EMD histogram (``save_eval_plots``); it needs matplotlib, and where that
+does not import it exits with a usage error before any model loads.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -180,6 +183,38 @@ def evaluate_reconstructions(
     }
 
 
+def save_eval_plots(results: Dict, output_dir: str) -> None:
+    """Lattice-parameter error histograms and parity scatters plus an EMD
+    histogram (icsg3d_tpu/apps/evaluate.py:190-230; reference
+    eval.py:230-322)."""
+    from icsg3d_torch import viz
+    from icsg3d_torch.viz import plt
+
+    os.makedirs(output_dir, exist_ok=True)
+    lt = np.asarray(results.get("lattice_true", []), np.float64).reshape(-1, 3)
+    lp = np.asarray(results.get("lattice_pred", []), np.float64).reshape(-1, 3)
+    for ax_i, name in enumerate("abc"):
+        if len(lt):
+            viz.plot_parity(
+                lt[:, ax_i], lp[:, ax_i],
+                os.path.join(output_dir, f"parity_{name}.png"), label=name,
+            )
+            fig, ax = plt.subplots()
+            ax.hist(np.abs(lp[:, ax_i] - lt[:, ax_i]), bins=30)
+            ax.set_xlabel(f"|error {name}| (Angstrom)")
+            ax.set_ylabel("count")
+            fig.savefig(os.path.join(output_dir, f"err_hist_{name}.png"), dpi=120)
+            plt.close(fig)
+    emds = np.asarray(results.get("emds", []), np.float64)
+    if len(emds):
+        fig, ax = plt.subplots()
+        ax.hist(emds[np.isfinite(emds)], bins=30)
+        ax.set_xlabel("EMD (Angstrom)")
+        ax.set_ylabel("count")
+        fig.savefig(os.path.join(output_dir, "emd_hist.png"), dpi=120)
+        plt.close(fig)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="Evaluate VAE reconstructions")
     p.add_argument("--data", required=True)
@@ -203,7 +238,7 @@ def main(argv=None):
     p.add_argument("--output", default=None)
     p.add_argument("--plots", default=None,
                    help="directory for error histograms and parity plots "
-                        "(not ported yet: use python -m icsg3d_tpu.apps.evaluate)")
+                        "(needs matplotlib)")
     p.add_argument("--binary-threshold", type=float, default=0.8,
                    help="U-Net occupancy (sigmoid) threshold for the "
                         "extraction mask (generate.py:224 default 0.8)")
@@ -221,10 +256,7 @@ def main(argv=None):
                    help="seed of the reparameterization noise")
     args = p.parse_args(argv)
     if args.plots:
-        raise NotImplementedError(
-            "--plots: the plotting module is not ported yet; write the plots "
-            "with python -m icsg3d_tpu.apps.evaluate"
-        )
+        common.require_plots(p, "--plots")
     device = common.resolve_device(args.device)
 
     ds = GridDataset(args.data)
@@ -267,6 +299,8 @@ def main(argv=None):
     if args.output:
         with open(args.output, "w") as f:
             json.dump(_sanitize_nonfinite(results), f, indent=1)
+    if args.plots:
+        save_eval_plots(results, args.plots)
     return results
 
 

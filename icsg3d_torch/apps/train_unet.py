@@ -11,9 +11,12 @@ float32.
   ``<ckpt>/class_weights.json``; ``--resume`` warns when they drifted.
 - ``<ckpt>/best.npz`` is what ``generate --unet-ckpt <ckpt>`` and
   ``train_vae --unet-ckpt <ckpt>`` read; ``--resume`` reads ``latest.npz``.
-- ``--layout`` is accepted and changes nothing (the port has one layout);
-  ``--plot-every`` is accepted and no plots are written (``history.json``
-  is).  ``--epoch-scan`` runs the resident per-step loop.
+- ``--layout`` is accepted and changes nothing (the port has one layout).
+  ``--epoch-scan`` runs the resident per-step loop.
+- Plots: the best-val plots go to ``<ckpt>/plots`` (at most one refresh
+  per ``--plot-every`` epochs) and the loss curves to ``<ckpt>/loss.png``
+  where matplotlib imports; elsewhere the run prints ``plots skipped:
+  matplotlib is not installed`` once and trains as before.
 - ``--spatial S`` > 1 shards every 3x3x3 conv in depth over a (data, S)
   mesh of the ``--device`` list (the JAX CLI's ``--layout ndcs --spatial
   S``): ``--device cuda`` is every visible card, ``--device
@@ -75,7 +78,7 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --ckpt")
     p.add_argument("--plot-every", type=int, default=10,
-                   help="accepted for flag parity; the port writes no plots")
+                   help="min epochs between best-val plot refreshes")
     p.add_argument("--ckpt", default="checkpoints/unet")
     common.add_device_flag(p)
     args = p.parse_args(argv)
@@ -147,8 +150,10 @@ def main(argv=None):
 
     fields = (("density", "lattice", "species") if device_coords
               else ("density", "coords", "species"))
+    plots = common.plot_dir(args)
     run = dict(epochs=args.epochs, class_weights=class_weights,
-               checkpoint_dir=args.ckpt, latest_every=args.ckpt_every)
+               checkpoint_dir=args.ckpt, latest_every=args.ckpt_every,
+               plot_dir=plots, plot_min_interval=args.plot_every)
     if args.resident:
         def split_host(ids):
             rows = np.array([ds.index[i] for i in ids])
@@ -162,7 +167,7 @@ def main(argv=None):
             epoch_scan=args.epoch_scan, batch_size=args.batch_size,
             shuffle_seed=args.seed + state.step, **run,
         )
-        common.finish_history(args, history)
+        common.finish_history(args, history, plots=plots is not None)
         return history
 
     def batches(ids, shuffle, seed):
@@ -187,7 +192,7 @@ def main(argv=None):
         batches(val_ids, False, 0),
         **run,
     )
-    common.finish_history(args, history)
+    common.finish_history(args, history, plots=plots is not None)
     return history
 
 

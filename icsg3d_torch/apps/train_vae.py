@@ -9,9 +9,12 @@ parameters; on the CPU in float32.
 - ``--unet-ckpt`` and ``--resume`` read the port's checkpoints
   (train/checkpoints.py: ``<dir>/best.npz``, ``<dir>/latest.npz``) or an
   ``.npz`` exported from a Flax checkpoint; an Orbax directory raises.
-- ``--layout`` is accepted and changes nothing (the port has one layout);
-  ``--plot-every`` is accepted and no plots are written (``history.json``
-  is).  ``--epoch-scan`` runs the resident per-step loop.
+- ``--layout`` is accepted and changes nothing (the port has one layout).
+  ``--epoch-scan`` runs the resident per-step loop.
+- Plots: the best-val plots go to ``<ckpt>/plots`` (at most one refresh
+  per ``--plot-every`` epochs) and the loss curves to ``<ckpt>/loss.png``
+  where matplotlib imports; elsewhere the run prints ``plots skipped:
+  matplotlib is not installed`` once and trains as before.
 - ``--spatial S`` > 1 shards every 3x3x3 conv in depth over a (data, S)
   mesh of the ``--device`` list (the JAX CLI's ``--layout ndcs --spatial
   S``): ``--device cuda`` is every visible card, ``--device
@@ -100,7 +103,7 @@ def main(argv=None):
                    help="save the latest checkpoint every N epochs (best is "
                         "always saved)")
     p.add_argument("--plot-every", type=int, default=1,
-                   help="accepted for flag parity; the port writes no plots")
+                   help="min epochs between best-val plot refreshes")
     p.add_argument("--resume", action="store_true",
                    help="resume from the latest checkpoint in --ckpt")
     p.add_argument("--ckpt", default="checkpoints/vae")
@@ -161,10 +164,11 @@ def main(argv=None):
     if args.epoch_scan and not args.resident:
         p.error("--epoch-scan requires --resident")
 
+    plots = common.plot_dir(args)
     run = dict(
         epochs=args.epochs, unet=unet, checkpoint_dir=args.ckpt,
-        seed=args.seed, latest_every=args.ckpt_every,
-        remat_perceptual=args.remat_perceptual,
+        seed=args.seed, plot_dir=plots, latest_every=args.ckpt_every,
+        plot_min_interval=args.plot_every, remat_perceptual=args.remat_perceptual,
     )
     if args.resident:
         if not device_coords:
@@ -199,7 +203,7 @@ def main(argv=None):
             shuffle_seed=args.seed + state.step,
             cache_true_features=args.cache_true_features, **run,
         )
-        common.finish_history(args, history)
+        common.finish_history(args, history, plots=plots is not None)
         return history
 
     def batches(ids, shuffle, seed):
@@ -228,7 +232,7 @@ def main(argv=None):
         batches(val_ids, False, 0),
         **run,
     )
-    common.finish_history(args, history)
+    common.finish_history(args, history, plots=plots is not None)
     return history
 
 

@@ -185,3 +185,31 @@ def reparameterize(z_mean, z_log_var, eps):
     """z = mu + exp(log_var / 2) * eps (vae/lattice_vae.py:53-66), with the
     noise passed in: torch's and JAX's generators give different numbers."""
     return z_mean + torch.exp(0.5 * z_log_var) * eps
+
+
+def sample_prior(model: ConditionalDFCVAE, n_samples: int, cond=None,
+                 var: float = 1.0, generator: Optional[torch.Generator] = None,
+                 z=None, bins=None):
+    """Decode z ~ N(0, var) under given (or random) condition bins
+    (icsg3d_tpu/models/vae.py:298-312; reference sample_vae,
+    vae/lattice_vae.py:349-357, minus its cond tiling bug).
+
+    z (n, latent_dim) and the bins (n,) are drawn on the CPU from
+    ``generator``, z first, so every device decodes the same numbers;
+    ``z`` (already scaled) and ``bins`` passed in replace the draws, and
+    ``cond`` (n, cond_bins) replaces the one-hot of the bins.  Returns
+    (z, decoded grids) on the model's device.
+    """
+    cfg = model.cfg
+    device = next(model.parameters()).device
+    if z is None:
+        z = torch.randn((n_samples, cfg.latent_dim), generator=generator) * var ** 0.5
+    if cond is None:
+        if bins is None:
+            bins = torch.randint(0, cfg.cond_bins, (n_samples,), generator=generator)
+        cond = torch.nn.functional.one_hot(torch.as_tensor(bins).long(),
+                                           cfg.cond_bins).float()
+    z = torch.as_tensor(z, dtype=torch.float32).to(device)
+    cond = torch.as_tensor(cond, dtype=torch.float32).to(device)
+    with torch.inference_mode():
+        return z, model.decode(z, cond)

@@ -30,6 +30,22 @@ import numpy as np
 from icsg3d_torch.train.state import TrainState
 
 
+class PlotThinning:
+    """The trainers' best-val plot refresh rule (icsg3d_tpu/train/vae.py:
+    808-816): refresh when ``best`` improved, at most once per
+    ``min_interval`` epochs."""
+
+    def __init__(self, min_interval: int = 1):
+        self.min_interval = min_interval
+        self.last = -min_interval  # epoch 0 may plot
+
+    def due(self, improved: bool, epoch: int) -> bool:
+        if improved and epoch - self.last >= self.min_interval:
+            self.last = epoch
+            return True
+        return False
+
+
 class CheckpointManager:
     """Saves `best` and `latest` train states under a directory."""
 

@@ -12,11 +12,13 @@ the steps eagerly; the JAX package jits them.
 
 The class weights are applied for real (the reference compiled its loss
 with the integer num_classes as the weight vector, unet/unet.py:252-254);
-``class_weights=None`` trains unweighted.  No plots are written.
+``class_weights=None`` trains unweighted.  With ``plot_dir`` the loop
+draws the best-val segmentation panels (matplotlib must import).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Iterable, Optional
 
@@ -28,7 +30,7 @@ from icsg3d_torch.data.store import prefetch_to_device
 from icsg3d_torch.models import UNet3D
 from icsg3d_torch.ops import losses, metrics
 from icsg3d_torch.parallel.mesh import Mesh
-from icsg3d_torch.train.checkpoints import CheckpointManager
+from icsg3d_torch.train.checkpoints import CheckpointManager, PlotThinning
 from icsg3d_torch.train.state import TrainState
 from icsg3d_torch.train.vae import _assemble_x, _host_metrics
 
@@ -166,6 +168,35 @@ def _fold_per_class_ce(mets: dict) -> dict:
     return mets
 
 
+def plot_forward(model: UNet3D, batch):
+    """The arrays of the best-val panels (icsg3d_tpu/train/unet.py:289-313):
+    an eval-mode forward of at most 4 samples of ``batch`` under
+    ``torch.inference_mode`` (no graph, no BatchNorm statistics touched).
+    Returns numpy (true labels, predicted labels, occupancy sigmoid), each
+    (n, d, d, d, 1) float32."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        x = _assemble_x(batch, None)
+        n = min(4, len(x))
+        soft, sig = model(x[:n].to(device))
+        pred = torch.argmax(soft, dim=-1).float()[..., None]
+        true = batch["labels"][:n].float()[..., None]
+        return tuple(t.float().cpu().numpy()
+                     for t in (true, pred, torch.sigmoid(sig)))
+
+
+def _save_best_plots(model: UNet3D, batch, plot_dir: str):
+    """Best-val segmentation panels (the TrainingPlot callback,
+    unet/unet.py:39-157): true vs predicted labels and binary masks."""
+    from icsg3d_torch import viz
+
+    os.makedirs(plot_dir, exist_ok=True)
+    true, pred, occupancy = plot_forward(model, batch)
+    viz.plot_real_vs_pred(true, pred, f"{plot_dir}/segmentations_best.png")
+    viz.plot_real_vs_pred((true != 0).astype(np.float32), occupancy,
+                          f"{plot_dir}/segmentations_binary_best.png")
+
+
 def train_unet(
     model: UNet3D,
     state: TrainState,
@@ -175,14 +206,17 @@ def train_unet(
     class_weights=None,
     checkpoint_dir: Optional[str] = None,
     log_fn=print,
+    plot_dir: Optional[str] = None,
     latest_every: int = 1,
     resident_data=None,
     batch_size: Optional[int] = None,
     shuffle_seed: int = 0,
     epoch_scan: bool = False,
+    plot_min_interval: int = 1,
 ):
-    """Epoch loop with best-val checkpointing (train/unet.py:317-516),
-    minus the best-val plots.
+    """Epoch loop with best-val checkpointing (train/unet.py:317-516), and
+    with ``plot_dir`` the best-val panels of the last val batch when
+    ``best`` improves, at most once per ``plot_min_interval`` epochs.
 
     train_batches/val_batches are zero-arg callables returning a fresh
     iterable of host numpy batches (prepare_unet_batch) per epoch.
@@ -201,6 +235,8 @@ def train_unet(
     ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
     device = next(model.parameters()).device
     history = []
+    last_val_batch = None
+    thinning = PlotThinning(plot_min_interval)
     if resident:
         if not batch_size:
             raise ValueError("resident_data requires batch_size")
@@ -215,6 +251,10 @@ def train_unet(
 
         def rows(r: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(r.astype(np.int64)).to(device)
+
+        if nb_val:  # the plotted batch: the last full val batch
+            idx = rows(np.arange((nb_val - 1) * batch_size, nb_val * batch_size))
+            last_val_batch = {k: v[idx] for k, v in v_dev.items()}
 
     for epoch in range(epochs):
         t0 = time.time()
@@ -232,6 +272,7 @@ def train_unet(
                 train_mets.append(train_step(state, b))
             for b in prefetch_to_device(val_batches(), device):
                 val_mets.append(eval_step(state, b))
+                last_val_batch = b
         tm = _host_metrics(train_mets)
         if not tm:
             raise ValueError(
@@ -259,7 +300,11 @@ def train_unet(
             f"val loss {vm['loss']:.4f} ce {vm['ce']:.4f} f1 {vm['f1']:.3f}"
         )
         if ckpt:
-            ckpt.save_epoch(state, vm["loss"], epoch, latest_every=latest_every)
+            improved = ckpt.save_epoch(state, vm["loss"], epoch,
+                                       latest_every=latest_every)
+            if (plot_dir and last_val_batch is not None
+                    and thinning.due(improved, epoch)):
+                _save_best_plots(model, last_val_batch, plot_dir)
     if (ckpt and epochs > 0 and latest_every > 1
             and ckpt.last_latest_epoch != epochs - 1):
         ckpt.save_latest(state)  # final save so --resume continues from the end

@@ -16,6 +16,7 @@ The reparameterization noise is drawn by the caller and passed in
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Callable, Dict, Iterable, List, Optional
 
@@ -27,10 +28,11 @@ from icsg3d_torch.config import GridSpec, VAEConfig
 from icsg3d_torch.data.store import prefetch_to_device
 from icsg3d_torch.models import ConditionalDFCVAE, UNet3D
 from icsg3d_torch.models.unet import unet_features
+from icsg3d_torch.models.vae import sample_prior
 from icsg3d_torch.ops import losses
 from icsg3d_torch.ops.grid import coordinate_grids
 from icsg3d_torch.parallel.mesh import Mesh
-from icsg3d_torch.train.checkpoints import CheckpointManager
+from icsg3d_torch.train.checkpoints import CheckpointManager, PlotThinning
 from icsg3d_torch.train.common import mean_metrics as _mean_metrics
 from icsg3d_torch.train.state import TrainState
 
@@ -216,6 +218,43 @@ def _host_metrics(mets: List[Dict[str, torch.Tensor]]):
                           for i in range(len(mets))])
 
 
+def plot_forwards(model: ConditionalDFCVAE, batch, epoch: int, eps=None, z=None,
+                  bins=None):
+    """The arrays of the best-val plots (icsg3d_tpu/train/vae.py:520-547):
+    an eval-mode reconstruction of at most 4 samples of ``batch`` and one
+    ``sample_prior`` decode, under ``torch.inference_mode`` (no graph, no
+    BatchNorm statistics touched).  The reconstruction's noise ``eps`` (n,
+    latent) defaults to a draw from ``torch.Generator().manual_seed(0)``
+    (JAX uses key(0)), the prior's from one seeded with ``epoch`` (JAX:
+    key(epoch)); ``z`` and ``bins`` pass the prior's draws in.  Returns
+    numpy (x, reconstruction, z_mean, prior sample)."""
+    device = next(model.parameters()).device
+    with torch.inference_mode():
+        x = _assemble_x(batch, model.cfg.grid)
+        n = min(4, len(x))
+        x, cond = x[:n].to(device), batch["cond"][:n].float().to(device)
+        if eps is None:
+            eps = torch.randn((n, model.cfg.latent_dim),
+                              generator=torch.Generator().manual_seed(0))
+        eps = torch.as_tensor(eps, dtype=torch.float32).to(device)
+        recon, z_mean, _, _ = model(x, cond, eps)
+        _, samples = sample_prior(model, 1, z=z, bins=bins,
+                                  generator=torch.Generator().manual_seed(epoch))
+        return tuple(t.float().cpu().numpy() for t in (x, recon, z_mean, samples))
+
+
+def _save_best_plots(model, batch, plot_dir: str, epoch: int):
+    """Best-val visualization set (vae/lattice_vae.py:327-337):
+    reconstructions, a prior sample, the latents' KDE."""
+    from icsg3d_torch import viz
+
+    os.makedirs(plot_dir, exist_ok=True)
+    x, recon, z_mean, samples = plot_forwards(model, batch, epoch)
+    viz.plot_real_vs_pred(x, recon, f"{plot_dir}/reconstructions.png")
+    viz.plot_slices(samples[0], f"{plot_dir}/samples.png")
+    viz.plot_latent_kde(z_mean, f"{plot_dir}/latent_kde.png")
+
+
 def train_vae(
     model: ConditionalDFCVAE,
     state: TrainState,
@@ -225,7 +264,9 @@ def train_vae(
     unet: Optional[UNet3D] = None,
     checkpoint_dir: Optional[str] = None,
     seed: int = 0,
+    plot_dir: Optional[str] = None,
     latest_every: int = 1,
+    plot_min_interval: int = 1,
     remat_perceptual: bool = False,
     resident_data=None,
     batch_size: Optional[int] = None,
@@ -233,9 +274,11 @@ def train_vae(
     cache_true_features: bool = False,
     epoch_scan: bool = False,
 ):
-    """Epoch loop mirroring icsg3d_tpu's train_vae (train/vae.py:550-824),
-    minus the best-val plots: per-epoch train/val metric means, a
-    wall-clock line, best/latest checkpoints.
+    """Epoch loop mirroring icsg3d_tpu's train_vae (train/vae.py:550-824):
+    per-epoch train/val metric means, a wall-clock line, best/latest
+    checkpoints, and with ``plot_dir`` the best-val plots of the last val
+    batch (``_save_best_plots``) when ``best`` improves, at most once per
+    ``plot_min_interval`` epochs (matplotlib must import).
 
     train_batches/val_batches are zero-arg callables returning a fresh
     iterable of host numpy batches per epoch.  resident_data=(train_dict,
@@ -259,6 +302,8 @@ def train_vae(
     gen = torch.Generator(device=device).manual_seed(seed)
     latent = model.cfg.latent_dim
     history = []
+    last_val_batch = None
+    thinning = PlotThinning(plot_min_interval)
 
     def noise(n):
         return torch.randn((n, latent), generator=gen, device=device)
@@ -288,6 +333,10 @@ def train_vae(
             idx = torch.from_numpy(rows.astype(np.int64)).to(device)
             return {k: v[idx] for k, v in data.items()}
 
+        if nb_val:  # the plotted batch: the last full val batch
+            last_val_batch = gather(
+                v_dev, np.arange((nb_val - 1) * batch_size, nb_val * batch_size))
+
     for epoch in range(epochs):
         t0 = time.time()
         train_mets, val_mets = [], []
@@ -304,6 +353,7 @@ def train_vae(
                 train_mets.append(train_step(state, b, noise(len(b["cond"]))))
             for b in prefetch_to_device(val_batches(), device):
                 val_mets.append(eval_step(state, b, noise(len(b["cond"]))))
+                last_val_batch = b
         tm = _host_metrics(train_mets)
         if not tm:
             raise ValueError(
@@ -331,7 +381,11 @@ def train_vae(
             f"val loss {vm['loss']:.4f}"
         )
         if ckpt:
-            ckpt.save_epoch(state, vm["loss"], epoch, latest_every=latest_every)
+            improved = ckpt.save_epoch(state, vm["loss"], epoch,
+                                       latest_every=latest_every)
+            if (plot_dir and last_val_batch is not None
+                    and thinning.due(improved, epoch)):
+                _save_best_plots(model, last_val_batch, plot_dir, epoch)
     if (ckpt and epochs > 0 and latest_every > 1
             and ckpt.last_latest_epoch != epochs - 1):
         ckpt.save_latest(state)  # final save so --resume continues from the end

@@ -35,6 +35,7 @@ VERBATIM = [
     "crystal/neighbors.py",
     "data/atom_features.py",
     "ops/emd.py",
+    "apps/query.py",
 ]
 
 NO_JAX = """
@@ -91,6 +92,17 @@ res = te.main(["--data", sys.argv[1] + "/vox", "--vae-ckpt", "none",
                "--unet-ckpt", "none", "--filters", "4,8", "--latent", "8",
                "--num-classes", "12", "--batch-size", "2", "--device", "cpu"])
 assert res["n_evaluated"] + res["n_skipped"] == 2
+import icsg3d_torch.apps.interpolate as ti
+import icsg3d_torch.apps.query, icsg3d_torch.apps.view as tw
+import icsg3d_torch.utils.profiling
+grids = ti.main(["--data", sys.argv[1] + "/data", "--vae-ckpt", "none", "--a", "a",
+                 "--b", "b", "--ninterps", "2", "--filters", "4,8", "--latent", "8",
+                 "--device", "cpu", "--output", sys.argv[1] + "/interp"])
+assert grids.shape == (4, d, d, d, 4)
+recs = tw.main(["--data", sys.argv[1] + "/vox", "--vae-ckpt", "none", "--unet-ckpt",
+                "none", "--num-classes", "12", "--filters", "4,8", "--latent", "8",
+                "--n", "1", "--device", "cpu", "--output", sys.argv[1] + "/view"])
+assert len(recs) == 1
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
              ("jax", "flax", "optax", "orbax", "icsg3d_tpu")
              and sys.modules[m] is not None)
@@ -100,9 +112,9 @@ print("NO_JAX_OK")
 
 
 def test_port_imports_and_runs_with_jax_blocked(tmp_path):
-    """generate, train_vae, voxelize, train_unet, train_cgcnn, predict and
-    evaluate run end to end with JAX, Flax, optax, Orbax and icsg3d_tpu
-    unimportable."""
+    """generate, train_vae, voxelize, train_unet, train_cgcnn, predict,
+    evaluate, interpolate and view run end to end (query and profiling
+    import) with JAX, Flax, optax, Orbax and icsg3d_tpu unimportable."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
         [sys.executable, "-c", NO_JAX, str(tmp_path), str(REPO)], cwd=str(tmp_path),
@@ -118,6 +130,34 @@ def test_no_port_module_imports_the_jax_package():
     )
     for path in (REPO / "icsg3d_torch").rglob("*.py"):
         assert not pattern.search(path.read_text()), path
+
+
+def test_no_port_module_imports_matplotlib_at_module_level():
+    """The card's machine has no matplotlib: the port and chip_smoke.py
+    import it only inside functions (viz's lazy pyplot, the plotting
+    functions), so every module imports without it."""
+    pattern = re.compile(r"^(import|from)\s+(matplotlib|sklearn)\b", re.M)
+    jax_pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|icsg3d_tpu)\b", re.M)
+    paths = list((REPO / "icsg3d_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in paths:
+        text = path.read_text()
+        assert not pattern.search(text), path
+        assert not jax_pattern.search(text), path
+
+
+def test_viz_is_the_jax_module_but_its_import_block():
+    """icsg3d_torch/viz.py: its docstring and import block are its own (a
+    lazy pyplot, ``available`` and the skip message); everything from the
+    first plot function down is icsg3d_tpu/viz.py with the package name
+    replaced."""
+    start = "\n\n\ndef plot_slices("
+    original = (REPO / "icsg3d_tpu" / "viz.py").read_text()
+    copy = (REPO / "icsg3d_torch" / "viz.py").read_text()
+    assert copy[copy.index(start):] == original[original.index(start):].replace(
+        "icsg3d_tpu", "icsg3d_torch")
+    head = original[:original.index(start)]
+    assert "matplotlib.use(\"Agg\")" in head and "def " not in head
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
@@ -214,14 +254,19 @@ def test_generate_rejects_a_malformed_cgcnn_ckpt(capsys):
         capsys.readouterr().err
 
 
-def test_evaluate_refuses_plots():
-    """--plots needs the plotting module, which is not ported: it refuses
-    and names the JAX CLI instead of skipping the plots."""
+def test_evaluate_refuses_plots(monkeypatch, capsys):
+    """--plots needs matplotlib: where it does not import, evaluate refuses
+    with a usage error naming it, before any model or data loads, instead
+    of skipping the plots."""
     from icsg3d_torch.apps import evaluate
 
-    with pytest.raises(NotImplementedError, match="icsg3d_tpu.apps.evaluate"):
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(SystemExit) as exc:
         evaluate.main(["--data", "nowhere", "--vae-ckpt", "v", "--unet-ckpt", "u",
                        "--device", "cpu", "--plots", "plots"])
+    assert exc.value.code == 2
+    assert "--plots draws plots, and matplotlib is not installed" in \
+        capsys.readouterr().err
 
 
 def test_orbax_directory_names_the_export_script(tmp_path, capsys):
@@ -276,7 +321,7 @@ def test_model_loaders_default_to_the_card(loader, monkeypatch):
 
 
 @pytest.mark.parametrize("app", ["voxelize", "train_unet", "train_cgcnn",
-                                 "predict", "evaluate"])
+                                 "predict", "evaluate", "interpolate", "view"])
 def test_new_clis_refuse_cuda_when_unavailable(app, monkeypatch, tmp_path):
     import importlib
 
@@ -287,6 +332,10 @@ def test_new_clis_refuse_cuda_when_unavailable(app, monkeypatch, tmp_path):
             "train_cgcnn": ["--synthetic", "2", "--ckpt", str(tmp_path / "c")],
             "predict": [str(tmp_path / "a.cif"), "--ckpt", "fe=none"],
             "evaluate": ["--data", str(tmp_path), "--vae-ckpt", "v",
-                         "--unet-ckpt", "u"]}[app]
+                         "--unet-ckpt", "u"],
+            "interpolate": ["--data", str(tmp_path), "--vae-ckpt", "v",
+                            "--sweep-conds"],
+            "view": ["--data", str(tmp_path), "--vae-ckpt", "v",
+                     "--unet-ckpt", "u"]}[app]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)

@@ -14,7 +14,11 @@
 - ``_assemble_x`` from lattice lengths; the cached-feature loss equals the
   live one; the eval step.
 - The CLI on the CPU: history/best/latest written, --resume, NaN never
-  best, best.npz read by generate, --spatial 2 on one device refused.
+  best, best.npz read by generate, --spatial 2 on one device refused;
+  the loss curves and best-val plots written.
+- The best-val plots: ``sample_prior`` and the plot forwards against
+  JAX's with JAX's draws passed in (atol/rtol 1e-4); they touch no
+  training state; ``plot_min_interval`` thins the refreshes as JAX does.
 
 Both packages get the same variables (every leaf randomised, carried by
 weights.load_flax_variables) and the same noise: the port's ``eps`` is
@@ -265,7 +269,9 @@ def test_cli_trains_resumes_and_feeds_generate(tmp_path, capsys):
     assert all(np.isfinite(h["train"]["loss"]) and h["train"]["perceptual"] > 0
                for h in hist)
     assert {"history.json", "best.npz", "latest.npz", "progress.json",
-            "best_metric.json"} <= set(os.listdir(ckpt))
+            "best_metric.json", "loss.png"} <= set(os.listdir(ckpt))
+    assert sorted(os.listdir(os.path.join(ckpt, "plots"))) == [
+        "latent_kde.png", "reconstructions.png", "samples.png"]
     with np.load(os.path.join(ckpt, "latest.npz")) as f:
         assert int(f["step"]) == 8
         assert "opt_state/mu/params/encoder/Conv_0/kernel" in f.files
@@ -338,3 +344,106 @@ def test_cli_resume_refuses_an_orbax_checkpoint(tmp_path):
     with pytest.raises(ValueError, match="export_flax_npz"):
         ttrain.main(["--data", data, "--nrot", "0", "--epochs", "1", "--resume",
                      "--ckpt", str(tmp_path / "ckpt")] + CLI)
+
+
+# -- the best-val plots' forwards (train/vae.py _save_best_plots) -----------
+
+
+def _prior_draws(epoch, n, latent, bins):
+    """The latents and condition bins JAX's sample_prior draws from
+    key(epoch) (icsg3d_tpu/models/vae.py:306-311)."""
+    z_key, c_key = jax.random.split(jax.random.key(epoch))
+    z = np.array(jax.random.normal(z_key, (n, latent)))
+    b = np.array(jax.random.randint(c_key, (n,), 0, bins))
+    return z, b
+
+
+def test_sample_prior_matches_jax():
+    """sample_prior with JAX's draws passed in: the same z back, the decode
+    within atol/rtol 1e-4 (f32 through the decoder); without them it draws
+    (n, latent) and n bins from the generator, the same on a rerun."""
+    from icsg3d_torch.models.vae import sample_prior as t_sample_prior
+    from icsg3d_tpu.models.vae import sample_prior as j_sample_prior
+
+    model, variables, port = _vae_pair(0.0)
+    port.eval()
+    for n, epoch in ((1, 0), (3, 7)):
+        jz, jout = j_sample_prior(model, variables, jax.random.key(epoch), n_samples=n)
+        z, b = _prior_draws(epoch, n, VAE_KW["latent_dim"], 10)
+        np.testing.assert_array_equal(z, np.asarray(jz))
+        tz, tout = t_sample_prior(port, n, z=z, bins=b)
+        np.testing.assert_array_equal(tz.numpy(), z)
+        np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-4, rtol=1e-4)
+    gen = torch.Generator().manual_seed(5)
+    z1, out1 = t_sample_prior(port, 2, generator=gen, var=0.5)
+    z2, out2 = t_sample_prior(port, 2, generator=torch.Generator().manual_seed(5),
+                              var=0.5)
+    assert tuple(z1.shape) == (2, VAE_KW["latent_dim"])
+    assert tuple(out1.shape) == (2, D, D, D, 4)
+    assert torch.equal(z1, z2) and torch.equal(out1, out2)
+
+
+def test_plot_forwards_match_jax():
+    """The best-val plots' reconstruction (4 of a batch of 5, JAX's key(0)
+    noise), z_mean and prior sample (key(epoch) draws) against JAX's
+    ``_plot_forwards``: atol/rtol 1e-4."""
+    model, variables, port = _vae_pair(0.0)
+    b = _batch(n=5, seed=3)
+    epoch = 4
+    recon_fn, sample_fn = jvae._plot_forwards(model)
+    x = np.concatenate([b["density"][..., None], b["coords"]], -1)
+    jrecon, jzm = recon_fn(variables, jnp.asarray(x[:4]), jnp.asarray(b["cond"][:4]))
+    _, jsamples = sample_fn(variables, epoch)
+    eps = np.array(jax.random.normal(jax.random.key(0), (4, VAE_KW["latent_dim"])))
+    z, bins = _prior_draws(epoch, 1, VAE_KW["latent_dim"], 10)
+    tx, trecon, tzm, tsamples = tvae.plot_forwards(
+        port, _torch_batch(b), epoch, eps=eps, z=z, bins=bins)
+    np.testing.assert_array_equal(tx, x[:4])
+    for got, want, name in ((trecon, jrecon, "recon"), (tzm, jzm, "z_mean"),
+                            (tsamples, jsamples, "samples")):
+        assert got.shape == np.asarray(want).shape, name
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-4, rtol=1e-4,
+                                   err_msg=name)
+
+
+def test_save_best_plots_touches_no_training_state(tmp_path):
+    """_save_best_plots writes its three PNGs and leaves the parameters,
+    the BatchNorm running statistics and the Adam state bitwise as they
+    were (an eval-mode forward under inference_mode)."""
+    state = tvae.create_vae_state(tcfg.VAEConfig(grid=tcfg.GridSpec(d=D), **VAE_KW),
+                                  LR, 0, "cpu")
+    train_step, _ = tvae.make_vae_steps(state.model)
+    b = _torch_batch(_batch())
+    train_step(state, b, torch.zeros(4, VAE_KW["latent_dim"]))
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    opt = {(i, k): v.clone() for i, s in enumerate(state.optimizer.state.values())
+           for k, v in s.items() if torch.is_tensor(v)}
+    tvae._save_best_plots(state.model, b, str(tmp_path / "plots"), epoch=2)
+    assert sorted(os.listdir(tmp_path / "plots")) == [
+        "latent_kde.png", "reconstructions.png", "samples.png"]
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    after = {(i, k): v for i, s in enumerate(state.optimizer.state.values())
+             for k, v in s.items() if torch.is_tensor(v)}
+    assert set(after) == set(opt) and all(torch.equal(after[k], opt[k]) for k in opt)
+
+
+@pytest.mark.parametrize("every,want", [(1, [0, 1, 3]), (2, [0, 3])])
+def test_plot_min_interval_thins_refreshes(tmp_path, monkeypatch, every, want):
+    """Best-val plots follow JAX's rule (train/vae.py:808-816): only on an
+    improved epoch, at least ``plot_min_interval`` epochs after the last."""
+    # per epoch: the train metrics, then the val metrics
+    losses = iter([1.0, 5.0, 1.0, 4.0, 1.0, 4.5, 1.0, 3.0])
+    monkeypatch.setattr(tvae, "_host_metrics",
+                        lambda mets: {"loss": next(losses), "mse": 0.0,
+                                      "perceptual": 0.0, "kld": 0.0})
+    plotted = []
+    monkeypatch.setattr(tvae, "_save_best_plots",
+                        lambda model, batch, plot_dir, epoch: plotted.append(epoch))
+    state = tvae.create_vae_state(tcfg.VAEConfig(grid=tcfg.GridSpec(d=D), **VAE_KW),
+                                  LR, 0, "cpu")
+    b = _batch(n=2)
+    tvae.train_vae(state.model, state, lambda: [b], lambda: [b], epochs=4,
+                   checkpoint_dir=str(tmp_path / "ckpt"), plot_dir=str(tmp_path),
+                   plot_min_interval=every)
+    assert plotted == want

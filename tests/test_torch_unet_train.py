@@ -11,7 +11,10 @@
 - The CLI on the CPU (the flag forms of tests/test_cli_matrix.py):
   ``--resume`` appends history, ``--no-class-weights``, ``--resident
   --epoch-scan`` equals ``--resident``, the refusals, and the checkpoint
-  read by ``generate --unet-ckpt`` and ``train_vae --unet-ckpt``.
+  read by ``generate --unet-ckpt`` and ``train_vae --unet-ckpt``; the loss
+  curves and best-val panels written.
+- The best-val panels' forward against JAX's ``_plot_forward`` (labels
+  equal, sigmoid atol 1e-5); it touches no training state.
 
 Both packages get the same variables (every leaf randomised, carried by
 weights.load_flax_variables) and the same batch.
@@ -301,3 +304,50 @@ def test_unet_checkpoint_feeds_generate_and_train_vae(ws, dataset, unet_ckpt):
     fresh = weights.flatten(weights.to_flax_variables(
         TorchUNet(tcfg.UNetConfig(num_classes=NCLS), torch.Generator().manual_seed(0))))
     assert not np.allclose(best["batch_stats/bn1/mean"], fresh["batch_stats/bn1/mean"])
+
+
+def test_plot_forward_matches_jax():
+    """The best-val panels' forward (4 of a batch of 5) against JAX's
+    ``_plot_forward``: predicted labels equal, the occupancy sigmoid within
+    atol 1e-5 (f32 through the U-Net), the true labels as given."""
+    model, variables, port = _pair()
+    raw = _raw_batch(n=5, seed=6)
+    batch = tunet.prepare_unet_batch(raw, NC, device_coords=True)
+    x = np.concatenate([raw["density"][..., None], raw["coords"]], -1)
+    soft, sig = junet._plot_forward(model)(variables, jnp.asarray(x[:4]))
+    true, pred, occ = tunet.plot_forward(
+        port, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_array_equal(true[..., 0], batch["labels"][:4])
+    np.testing.assert_array_equal(pred[..., 0], np.asarray(jnp.argmax(soft, -1)))
+    np.testing.assert_allclose(occ, np.asarray(jax.nn.sigmoid(sig)), atol=1e-5)
+
+
+def test_save_best_plots_touches_no_training_state(tmp_path):
+    """_save_best_plots writes its two panels and leaves the parameters,
+    the BatchNorm running statistics and the Adam state bitwise as they
+    were."""
+    state = tunet.create_unet_state(tcfg.UNetConfig(**UNET_KW), LR, 0, "cpu")
+    train_step, _ = tunet.make_unet_steps(state.model)
+    batch = {k: torch.from_numpy(v) for k, v in
+             tunet.prepare_unet_batch(_raw_batch(), NC).items()}
+    train_step(state, batch)
+    before = {k: v.clone() for k, v in state.model.state_dict().items()}
+    opt = {(i, k): v.clone() for i, s in enumerate(state.optimizer.state.values())
+           for k, v in s.items() if torch.is_tensor(v)}
+    tunet._save_best_plots(state.model, batch, str(tmp_path / "plots"))
+    assert sorted(os.listdir(tmp_path / "plots")) == [
+        "segmentations_best.png", "segmentations_binary_best.png"]
+    for k, v in state.model.state_dict().items():
+        assert torch.equal(v, before[k]), k
+    for i, s in enumerate(state.optimizer.state.values()):
+        for k, v in s.items():
+            if torch.is_tensor(v):
+                assert torch.equal(v, opt[(i, k)]), k
+
+
+def test_train_unet_writes_plots(unet_ckpt):
+    """Where matplotlib imports, the CLI writes the loss curves and the
+    best-val panels of its first (improving) epoch."""
+    assert os.path.exists(os.path.join(unet_ckpt, "loss.png"))
+    assert sorted(os.listdir(os.path.join(unet_ckpt, "plots"))) == [
+        "segmentations_best.png", "segmentations_binary_best.png"]
