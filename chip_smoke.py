@@ -41,8 +41,11 @@ Phases (any failure exits nonzero, before the result line):
    kernel/library and kernel/bound.  The generation shapes are checked
    again at evaluate's batch 10 and at the later paths' other batches:
    1 (view, interpolate's pair encodes), 2 (the encoder: the sweep's
-   encodes) and 4 (the trainers' plot forwards).  The batch 1, 2 and 4
-   rows' errors join the kernels line; their times stay out of its sums.
+   encodes) and 4 (the trainers' plot forwards); and at the rows each
+   data-parallel rank of phase 27 holds: the VAE step's forwards, dx and
+   dW at 10, the U-Net's training and eval forwards, dx and dW at 5.  The
+   batch 1, 2, 4, and the ranks' rows' errors join the kernels line;
+   their times stay out of its sums.
 4. Generation: ``icsg3d_torch.apps.generate.main`` on a synthetic 32^3
    GridDataset with seeded full-width weights (.npz), 40 samples at batch
    20, once with ``--fused`` and once on the host watershed path.  Checks
@@ -171,11 +174,50 @@ Phases (any failure exits nonzero, before the result line):
    batch 20 and the U-Net train step at batch 10 (step ms, grids/s, MFU
    of the analytic FLOP count against the dense bf16 peak), and
    ``profiling.trace`` around one more step writes a non-empty trace.
+26. Data parallelism over NCCL, one rank (``[dp-nccl]``): this script
+   again as a rank worker (``--dp-worker``) under ``python -m
+   torch.distributed.run --standalone --nproc-per-node 1``, running
+   ``apps.train_vae.main --device cuda --dist-backend nccl`` for one epoch
+   at batch 20: its history equal to (or within rtol 1e-6 of) the first
+   epoch of phase 6's single-process run, its launches those of one
+   epoch; then the gradient buffer's bytes, the gradient all-reduce's
+   CUDA-event ms and the train step's ms beside the same step without a
+   process group.
+27. Two ranks on cuda:0 over gloo (``[dp-gloo]``; NCCL refuses two ranks
+   on one card): ``train_vae`` (batch 20, 10 rows per rank),
+   ``train_unet`` (10, 5) and ``train_cgcnn`` (32, 16), one epoch each,
+   the VAE at lr 1e-5 and the U-Net at 1e-7 (``DP_LR``: Adam turns a
+   last-bit difference of a near-zero gradient into a +-lr step), against
+   world-1 runs of the same global batches: in float32 (``f32_cli``)
+   every per-epoch metric within rtol 1e-3, and in bfloat16, the card's
+   dtype, whose runs join the kernels line, within 2e-2 (f1 and weighted
+   recall, voxel-count ratios in [0, 1], absolute); only rank 0 wrote
+   under the checkpoint directory, both ranks' BatchNorm statistics
+   bitwise equal, each rank's launches its steps times the per-step
+   counts.  Then one VAE and one U-Net train step from the seeded weights
+   against world 1 on the whole batch: in float32, loss and every metric
+   within 1e-4 (f1 and weighted recall absolute, the U-Net's class counts
+   exactly) and every gradient within 1e-2 of the world-1 gradient in l2
+   norm (a max pool's argmax may move with the last bit of a BatchNorm
+   moment, so single elements may differ more: the largest is printed),
+   and the VAE's conv biases before a training BatchNorm (true gradient
+   0) below 1e-2 of their kernel's max gradient on both sides; in
+   bfloat16, where such last-bit moves grow through the layers (see
+   ``phase_dp_gloo``), loss within 2e-2 and gradient cosines at least
+   0.95, the card-vs-CPU standard of phases 8 and 13, and the step's and
+   the gradient all-reduce's times.  Two processes share the card and
+   gloo goes through the host: the times are not a data-parallel rate.
+28. The build in parts (``[dp-voxelize]``): ``apps.voxelize --synthetic
+   300`` on two gloo ranks on cuda:0, rank k writing ``part-<k>/``;
+   ``merge_parts`` equals phase 10's single-process build bitwise in
+   every field, id by id; one K4 launch per rank.
 
-It imports nothing of JAX.  The last two stdout lines are the kernels
+Every torchrun launch has a timeout (its process group is killed on the
+way out) and a failed rank fails the smoke test.  It imports nothing of
+JAX.  The last two stdout lines are the kernels
 JSON object and then ``{"ok": true, "device": {...}}``; the kernels'
 launches count generation with ``--cgcnn-ckpt``, evaluate, interpolate,
-view and the plots phase's trainers too.
+view, the plots phase's trainers and the data-parallel ranks too.
 """
 
 from __future__ import annotations
@@ -2533,6 +2575,617 @@ def phase_profiling(tmp: str, synthetic: str, card: str):
               f"{size} bytes")
 
 
+# -- data parallelism across processes ------------------------------------------
+# Rank workers are this script again (``--dp-worker SPEC``) under
+# ``python -m torch.distributed.run --standalone``: the launch counters are
+# per process, so each rank writes its results (histories, read_counts(),
+# the files it wrote, step checks) to rank<r>.json and its arrays to
+# rank<r>.npz, and the phase reads them.
+
+DP_RANKS = 2  # the gloo phases: two ranks on cuda:0
+DP_LAUNCH_TIMEOUT_S = 300
+DP_ONE_BACKEND = "nccl"  # the one-rank phase's backend
+# phase 27's trainer runs: Adam moves every weight by ~lr whatever its
+# gradient, so a last-bit difference in a near-zero gradient (another
+# summation order) flips a step's sign; these small rates keep such flips
+# from drowning the comparison of the histories (as
+# tests/test_torch_spatial_train.py does on the CPU); the steps' own check
+# holds the gradients
+DP_LR = {"train_vae": "1e-5", "train_unet": "1e-7"}
+# [0, 1] ratios of voxel counts (the voxels whose true-class probability
+# rounds to 1): a voxel crossing p = 0.5 moves them by a step, so they are
+# held to 1e-3 absolute where the other metrics are held relative
+COUNT_METRICS = ("f1", "weighted_recall")
+
+
+def dp_device() -> str:
+    """The card every rank of the gloo phases names: cuda:0."""
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+def torchrun(nproc: int, jobs: list, tmp: str, tag: str):
+    """Run ``jobs`` on ``nproc`` ranks of this script; returns (each rank's
+    results, each rank's arrays, wall seconds).  A rank that fails, or a
+    launch that outlives DP_LAUNCH_TIMEOUT_S, fails the smoke test; the
+    launch's whole process group is killed on the way out."""
+    import signal
+
+    import numpy as np
+
+    out = os.path.join(tmp, f"{tag}-ranks")
+    os.makedirs(out)
+    spec = os.path.join(out, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"jobs": jobs, "out": out}, f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(nproc), os.path.abspath(__file__), "--dp-worker", spec]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        stdout, stderr = proc.communicate(timeout=DP_LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        fail(f"{tag}: {nproc} ranks outlived {DP_LAUNCH_TIMEOUT_S} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    secs = time.perf_counter() - t0
+    with open(os.path.join(out, "ranks.log"), "w") as f:
+        f.write(stdout + stderr)
+    check(proc.returncode == 0, f"{tag}: torchrun exited {proc.returncode}:\n"
+          f"{stderr[-3000:]}")
+    results, arrays = [], []
+    for r in range(nproc):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+        with np.load(os.path.join(out, f"rank{r}.npz")) as f:
+            arrays.append({k: f[k] for k in f.files})
+    return results, arrays, secs
+
+
+def vae_step_batch(tmp: str, device):
+    """The VAE step checks' global batch: the first BATCH parents of the
+    training set, cyclic condition bins, seeded noise."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.data.store import GridDataset
+
+    ds = GridDataset(os.path.join(tmp, "train-data"))
+    cond = np.zeros((BATCH, 10), np.float32)
+    cond[np.arange(BATCH), np.arange(BATCH) % 10] = 1.0
+    batch = {"density": torch.from_numpy(np.array(ds.arrays["density"][:BATCH])),
+             "abc": torch.from_numpy(np.array(ds.arrays["lattice"][:BATCH, :3])),
+             "cond": torch.from_numpy(cond)}
+    eps = torch.randn(BATCH, 256, generator=torch.Generator().manual_seed(SEED + 9))
+    return {k: v.to(device) for k, v in batch.items()}, eps.to(device)
+
+
+def unet_step_batch(synthetic: str, device):
+    """The U-Net step checks' global batch: the first UNET_BATCH samples of
+    the synthetic build."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.data.store import GridDataset
+    from icsg3d_torch.train.unet import prepare_unet_batch
+
+    ds = GridDataset(synthetic)
+    raw = {k: np.asarray(ds.arrays[k][:UNET_BATCH]) for k in ("density", "lattice",
+                                                              "species")}
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in prepare_unet_batch(raw, 95, device_coords=True).items()}
+
+
+def dp_step_models(model: str, job: dict, device, group):
+    """(fresh seeded train state, its train step, its step arguments at the
+    global batch) for the step checks, computing in ``job["dtype"]``."""
+    import numpy as np
+
+    from icsg3d_torch.apps.common import load_unet
+    from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
+    from icsg3d_torch.train.unet import create_unet_state, make_unet_steps
+    from icsg3d_torch.train.vae import create_vae_state, make_vae_steps
+
+    dt = job["dtype"]
+    if model == "vae":
+        unet = load_unet(UNetConfig(dtype=dt), job["unet"], device=device)
+        state = create_vae_state(VAEConfig(grid=GridSpec(d=D), dtype=dt), 5e-4, SEED,
+                                 device, group=group)
+        batch, eps = vae_step_batch(job["tmp"], device)
+        return state, make_vae_steps(state.model, unet)[0], (batch, eps)
+    with open(job["class_weights"]) as f:
+        cw = np.asarray(json.load(f)["class_weights"], np.float32)
+    state = create_unet_state(UNetConfig(dtype=dt), 3e-6, SEED, device, group=group)
+    return state, make_unet_steps(state.model, cw)[0], (unet_step_batch(
+        job["synthetic"], device),)
+
+
+def dp_job_cli(job: dict, arrays: dict) -> dict:
+    """One CLI run on this rank (computing in ``job["dtype"]`` where given,
+    ``f32_cli``): its history (or dataset size), launches, wall seconds,
+    the files it opened for writing under ``job["watch"]``, and (trainers)
+    its model's BatchNorm statistics in ``arrays``."""
+    import builtins
+    import importlib
+
+    from icsg3d_torch.train.checkpoints import CheckpointManager
+
+    app = importlib.import_module(f"icsg3d_torch.apps.{job['app']}")
+    watch = os.path.abspath(job["watch"])
+    writes, states = [], []
+    real_open, real_makedirs = builtins.open, os.makedirs
+    save_epoch = CheckpointManager.save_epoch
+
+    def log(path):
+        path = os.path.abspath(os.fspath(path))
+        if path == watch or path.startswith(watch + os.sep):
+            writes.append(os.path.relpath(path, watch))
+
+    def logged_open(file, mode="r", *args, **kwargs):
+        if isinstance(file, (str, bytes, os.PathLike)) and set(mode) & set("wax+"):
+            log(file)
+        return real_open(file, mode, *args, **kwargs)
+
+    def logged_makedirs(name, *args, **kwargs):
+        log(name)
+        return real_makedirs(name, *args, **kwargs)
+
+    def keep_state(self, state, *args, **kwargs):
+        states[:] = [state]
+        return save_epoch(self, state, *args, **kwargs)
+
+    builtins.open, os.makedirs = logged_open, logged_makedirs
+    CheckpointManager.save_epoch = keep_state
+    try:
+        with plots_off(), f32_cli(job.get("dtype") == "float32"):
+            sync()
+            reset_counts()
+            result, secs = _seconds(app.main, job["argv"])
+            counts = read_counts()
+    finally:
+        builtins.open, os.makedirs = real_open, real_makedirs
+        CheckpointManager.save_epoch = save_epoch
+    out = {"counts": counts, "seconds": secs, "writes": writes}
+    if isinstance(result, list):
+        out["history"] = result
+    else:
+        out["samples"] = len(result)
+    if states:
+        for name, t in states[0].model.named_buffers():
+            arrays[f"{job['watch']}/{name}"] = t.detach().cpu().numpy()
+    return out
+
+
+def dp_job_step(job: dict, arrays: dict) -> dict:
+    """One train step of ``job["model"]`` at this rank's rows of the global
+    batch, from the seeded weights.  With ``job["timed"]``: the gradient
+    all-reduce's CUDA-event median, the step's, and on rank 0 (the others
+    waiting) the same step without a process group at the global batch, in
+    turns.  Then on rank 0 the step at world 1 on the whole batch from the
+    same weights: its loss, and for each parameter the gradient difference
+    (the ranks' values are the global batch's after the all-reduces) in
+    l2 norm over the world-1 gradient's, its largest element over the
+    world-1 gradient's max, and both gradients' maxima."""
+    import torch
+
+    from icsg3d_torch.parallel import distributed, shard_batch
+
+    device = torch.device(dp_device())
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    group = distributed.initialize(backend=job["backend"])
+    rank0 = distributed.process_index() == 0
+    state, step, args = dp_step_models(job["model"], job, device, group)
+    mine = tuple(shard_batch(a, group) for a in args)
+    mets = step(state, *mine)
+    grads = {n: p.grad.detach().double() for n, p in state.model.named_parameters()}
+    # grad_bytes: the flat f32 buffer that reduce_gradients all-reduces
+    out = {"loss": float(mets["loss"]),
+           "grad_bytes": 4 * sum(g.numel() for g in grads.values())}
+    if job["timed"]:
+        out["reduce_ms"] = cuda_median_ms(state.reduce_gradients, runs=10)
+        plain, plain_step, _ = (dp_step_models(job["model"], job, device, None)
+                                if rank0 else (None, None, None))
+        times = {"group": [], "plain": []}
+        for name in ("plain", "group", "group", "plain"):
+            if name == "group":
+                times[name].append(cuda_median_ms(lambda: step(state, *mine), runs=5,
+                                                  warmup=1))
+            else:
+                if rank0:
+                    times[name].append(cuda_median_ms(
+                        lambda: plain_step(plain, *args), runs=5, warmup=1))
+                distributed.sync_hosts(group)
+        out["step_ms"] = {k: statistics.mean(v) if v else None for k, v in times.items()}
+        del plain
+    del state
+    if rank0:
+        one, one_step, _ = dp_step_models(job["model"], job, device, None)
+        one_mets = one_step(one, *args)
+        out["loss_one"] = float(one_mets["loss"])
+        out["mets"], out["mets_one"] = ({k: v.tolist() for k, v in m.items()}
+                                        for m in (mets, one_mets))
+        out["grad_l2"], out["grad_cos"], out["grad_err"], out["grad_max"] = ({}, {},
+                                                                           {}, {})
+        for n, p in one.model.named_parameters():
+            g1, g = p.grad.detach().double().flatten(), grads[n].flatten()
+            diff, scale, norm = g - g1, float(g1.abs().max()), float(g1.norm())
+            out["grad_l2"][n] = float(diff.norm()) / max(norm, 1e-30)
+            out["grad_cos"][n] = float(g @ g1) / max(float(g.norm()) * norm, 1e-30)
+            out["grad_err"][n] = float(diff.abs().max()) / max(scale, 1e-30)
+            out["grad_max"][n] = [scale, float(g.abs().max())]
+        del one
+    torch.cuda.empty_cache()
+    distributed.sync_hosts(group)
+    return out
+
+
+def dp_worker(spec_path: str) -> None:
+    """A rank of ``torchrun``: runs the spec's jobs, writes the results."""
+    import numpy as np
+
+    from icsg3d_torch.parallel import distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    arrays, results = {}, []
+    for job in spec["jobs"]:
+        run = {"cli": dp_job_cli, "step": dp_job_step}[job["kind"]]
+        results.append(run(job, arrays))
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank, "world": distributed.process_count(),
+                   "jobs": results}, f)
+    np.savez(os.path.join(spec["out"], f"rank{rank}.npz"), **arrays)
+    distributed.shutdown()
+
+
+def _metric_err(key: str, got, want) -> float:
+    """The difference of two values of metric ``key`` over its tolerance's
+    scale: relative, or absolute for the COUNT_METRICS."""
+    import numpy as np
+
+    a, b = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    scale = 1.0 if key.split()[-1] in COUNT_METRICS else np.maximum(np.abs(b), 1e-12)
+    return float((np.abs(a - b) / scale).max())
+
+
+def _history_rel(got: list, want: list) -> dict:
+    """{"<split> <metric>": the largest difference over the epochs (see
+    ``_metric_err``)} of two histories (their epochs and steps must
+    agree)."""
+    check(len(got) == len(want) and all(g["steps"] == w["steps"]
+                                        for g, w in zip(got, want)),
+          f"histories of {len(got)} and {len(want)} epochs differ in shape")
+    rels = {}
+    for g, w in zip(got, want):
+        for split in ("train", "val"):
+            check(set(g[split]) == set(w[split]), f"history keys {sorted(g[split])}")
+            for key, v in w[split].items():
+                name = f"{split} {key}"
+                rels[name] = max(rels.get(name, 0.0), _metric_err(key, g[split][key], v))
+    return rels
+
+
+def _first_epoch(ckpt: str) -> list:
+    with open(os.path.join(ckpt, "history.json")) as f:
+        return json.load(f)[:1]
+
+
+def _train_argv(tmp: str, synthetic: str, app: str, device: str, backend: str,
+                tag: str):
+    """One epoch of ``app`` with the arguments of its single-process phase
+    (phase_train, phase_train_unet, phase_train_cgcnn's formation energy)."""
+    common = ["--epochs", "1", "--device", device, "--dist-backend", backend,
+              "--seed", str(SEED), "--ckpt", os.path.join(tmp, f"{tag}-{app}")]
+    return common + {
+        "train_vae": ["--data", os.path.join(tmp, "train-data"), "--unet-ckpt",
+                      os.path.join(tmp, "unet.npz"), "--batch-size", str(BATCH),
+                      "--nrot", "0"],
+        "train_unet": ["--data", synthetic, "--batch-size", str(UNET_BATCH),
+                       "--nrot", "0"],
+        "train_cgcnn": ["--synthetic", str(CGCNN_SYNTHETIC), "--synthetic-property",
+                        "formation_energy", "--batch-size", str(CGCNN_BATCH)],
+    }[app]
+
+
+def _dp_step_job(tmp: str, synthetic: str, model: str, backend: str, timed: bool,
+                 dtype: str = "bfloat16"):
+    return {"kind": "step", "model": model, "backend": backend, "timed": timed,
+            "dtype": dtype, "tmp": tmp, "unet": os.path.join(tmp, "unet.npz"),
+            "synthetic": synthetic,
+            "class_weights": os.path.join(tmp, "unet-ckpt", "class_weights.json")}
+
+
+def phase_dp_nccl(tmp: str, synthetic: str, card: str):
+    """``apps.train_vae`` on one rank over NCCL (torchrun, ``--device cuda``
+    = cuda:$LOCAL_RANK), one epoch at batch BATCH, against the first epoch
+    of phase 6's single-process run from the same seed: every metric equal
+    or within rtol 1e-6.  Then the timed VAE step: the gradient buffer's
+    bytes, the all-reduce's CUDA-event ms, the step's ms beside the same
+    step without a process group.  Returns the rank's launches."""
+    argv = _train_argv(tmp, synthetic, "train_vae", DEVICE, DP_ONE_BACKEND,
+                       "dp-nccl")
+    jobs = [{"kind": "cli", "app": "train_vae", "argv": argv,
+             "watch": os.path.join(tmp, "dp-nccl-train_vae")},
+            _dp_step_job(tmp, synthetic, "vae", DP_ONE_BACKEND, True)]
+    (rank,), _, secs = torchrun(1, jobs, tmp, "dp-nccl")
+    cli, step = rank["jobs"]
+    check(rank["world"] == 1, f"dp-nccl: world {rank['world']}")
+    rel = max(_history_rel(cli["history"],
+                           _first_epoch(os.path.join(tmp, "vae-ckpt"))).values())
+    check(rel <= 1e-6, f"dp-nccl: history differs from the single-process run by "
+          f"rel {rel:.3e} > 1e-6")
+    n_train = int(0.8 * TRAIN_PARENTS) // BATCH
+    n_val = (TRAIN_PARENTS - int(0.8 * TRAIN_PARENTS)) // BATCH
+    want = {**NO_LAUNCHES, "fwd": (n_train + n_val) * FWD_PER_STEP,
+            "bias": n_train * FWD_PER_STEP + n_val * (1 + 2 * len(UNET_PREFIX)),
+            "folded": n_val * (len(VAE_CONVS) - 1), "dx": n_train * DX_PER_STEP,
+            "dw": n_train * DW_PER_STEP}
+    check(cli["counts"] == want, f"dp-nccl: launches {cli['counts']}, want {want}")
+    ms = step["step_ms"]
+    print(f"[dp-nccl] train_vae under torchrun, 1 rank over NCCL ({card}): 1 epoch "
+          f"of {n_train} steps + {n_val} val batch at batch {BATCH} in "
+          f"{cli['seconds']:.3f} s (launch {secs:.3f} s); history "
+          f"{'equal to' if rel == 0 else f'within rel {rel:.3e} of'} the "
+          f"single-process run's first epoch; launches {cli['counts']} = expected; "
+          f"gradient buffer {step['grad_bytes']} bytes, all-reduce "
+          f"{step['reduce_ms']:.4f} ms per step (CUDA-event median of 10); train "
+          f"step {ms['group']:.3f} ms with the process group vs {ms['plain']:.3f} ms "
+          f"without (CUDA-event medians of 5, in turns)")
+    return cli["counts"]
+
+
+@contextlib.contextmanager
+def f32_cli(on: bool):
+    """Inside this block (when ``on``) the trainer CLIs compute in float32
+    on the card too (``apps.common.compute_dtype``), on the f32 kernels."""
+    from icsg3d_torch.apps import common
+
+    chosen = common.compute_dtype
+    if on:
+        common.compute_dtype = lambda device: "float32"
+    try:
+        yield
+    finally:
+        common.compute_dtype = chosen
+
+
+def phase_dp_gloo(tmp: str, synthetic: str, card: str):
+    """Three trainers on DP_RANKS ranks on cuda:0 over gloo, one epoch each
+    at the single-process phases' global batches (VAE 20 = 10 per rank,
+    U-Net 10 = 5, CGCNN 32 = 16; the VAE and the U-Net at DP_LR), against
+    world-1 runs of the same global batches (the VAE and U-Net here,
+    CGCNN's phase 17): the VAE and the U-Net once computing in float32,
+    held to 1e-3, and once in bfloat16, the card's, held to the
+    card-vs-CPU standard 2e-2 and counted in the kernels line.  In
+    bfloat16 the ranks' other summation order of a BatchNorm moment moves
+    a rounding now and then, and through 9-14 bf16 layers and their max
+    pools that grows to percents (the U-Net's conv1 gradient cosine card
+    vs CPU is ~0.96, phase 13).  Then one VAE and one U-Net step against
+    world 1 in float32 (loss and metrics 1e-4, gradients 1e-2 in l2 norm)
+    and in bfloat16 (loss 2e-2, gradient cosines 0.95, the times).  Two
+    ranks share one card and gloo goes through the host: their times are
+    not a data-parallel rate.  Every result is printed before the checks
+    fail.  Returns the launches of the ranks' bfloat16 and CGCNN runs."""
+    import numpy as np
+
+    from icsg3d_torch.apps import train_unet, train_vae
+
+    clis = [("train_vae", "float32"), ("train_unet", "float32"),
+            ("train_cgcnn", "float32"), ("train_vae", "bfloat16"),
+            ("train_unet", "bfloat16")]
+    tol = {"float32": 1e-3, "bfloat16": 2e-2}
+
+    def argv(app, dt, device, tag):
+        return (_train_argv(tmp, synthetic, app, device, "gloo", f"{tag}-{dt}")
+                + (["--lr", DP_LR[app]] if app in DP_LR else []))
+
+    jobs = [{"kind": "cli", "app": app, "dtype": dt,
+             "argv": argv(app, dt, dp_device(), "dp-gloo"),
+             "watch": os.path.join(tmp, f"dp-gloo-{dt}-{app}")} for app, dt in clis]
+    steps = [(m, dt) for dt in ("float32", "bfloat16") for m in ("vae", "unet")]
+    jobs += [_dp_step_job(tmp, synthetic, m, "gloo", dt == "bfloat16", dt)
+             for m, dt in steps]
+    ranks, arrays, secs = torchrun(DP_RANKS, jobs, tmp, "dp-gloo")
+    singles = {("train_cgcnn", "float32"): _first_epoch(
+        os.path.join(tmp, "cgcnn-formation_energy"))}
+    with plots_off():
+        for app, mod in (("train_vae", train_vae), ("train_unet", train_unet)):
+            for dt in tol:
+                with f32_cli(dt == "float32"):
+                    singles[app, dt] = _quiet(mod.main, argv(app, dt, DEVICE, "dp-one"))
+    n = {"train_vae": (TRAIN_PARENTS, BATCH), "train_unet": (UNET_PARENTS, UNET_BATCH),
+         "train_cgcnn": (CGCNN_SYNTHETIC, CGCNN_BATCH)}
+    per_step = {
+        "train_vae": ({"fwd": FWD_PER_STEP, "bias": FWD_PER_STEP, "dx": DX_PER_STEP,
+                       "dw": DW_PER_STEP},
+                      {"fwd": FWD_PER_STEP, "bias": 1 + 2 * len(UNET_PREFIX),
+                       "folded": len(VAE_CONVS) - 1}),
+        "train_unet": ({"fwd": UNET_CONVS_N, "bias": UNET_CONVS_N,
+                        "dx": UNET_CONVS_N - 1, "dw": UNET_CONVS_N},
+                       {"fwd": UNET_CONVS_N, "folded": UNET_CONVS_N}),
+        "train_cgcnn": ({}, {}),
+    }
+    total = dict(NO_LAUNCHES)
+    notes, fails = [], []
+
+    def need(cond: bool, msg: str) -> None:
+        if not cond:
+            fails.append(msg)
+
+    for i, (app, dt) in enumerate(clis):
+        runs = [r["jobs"][i] for r in ranks]
+        rels = {}
+        for run in runs:
+            for k, v in _history_rel(run["history"], singles[app, dt]).items():
+                rels[k] = max(rels.get(k, 0.0), v)
+        worst = max(rels, key=rels.get)
+        need(rels[worst] <= tol[dt], f"{app} in {dt}: {worst} differs from world 1 "
+             f"by {rels[worst]:.3e} > {tol[dt]:g} (all: {rels})")
+        ckpt_files = [w for w in runs[0]["writes"] if w != "."]
+        need(all(run["writes"] == [] for run in runs[1:]) and ckpt_files,
+             f"{app} in {dt}: writes {[run['writes'] for run in runs]}")
+        prefix = jobs[i]["watch"] + "/"
+        stats = sorted(k for k in arrays[0] if k.startswith(prefix))
+        for other in arrays[1:]:
+            need(sorted(k for k in other if k.startswith(prefix)) == stats and all(
+                np.array_equal(other[k], arrays[0][k]) for k in stats),
+                f"{app} in {dt}: the ranks' BatchNorm statistics differ")
+        parents, batch = n[app]
+        n_train = int(0.8 * parents) // batch
+        n_val = (parents - int(0.8 * parents)) // batch
+        want = dict(NO_LAUNCHES)
+        for per, k in zip(per_step[app], (n_train, n_val)):
+            for key, c in per.items():
+                want[key] += k * c
+        for r, run in enumerate(runs):
+            need(run["counts"] == want, f"{app} in {dt} rank {r}: launches "
+                 f"{run['counts']}, want {want}")
+            if dt == "bfloat16" or app == "train_cgcnn":  # the card's own runs
+                total = {key: total[key] + run["counts"][key] for key in total}
+        lr = f" at lr {DP_LR[app]}" if app in DP_LR else ""
+        notes.append(f"{app} in {dt}{lr}, 1 epoch ({n_train} steps + {n_val} val "
+                     f"batches, {batch // DP_RANKS} rows per rank) in "
+                     f"{[round(run['seconds'], 3) for run in runs]} s; metrics within "
+                     f"{rels[worst]:.3e} of world 1 (worst {worst}; relative, "
+                     f"{'/'.join(COUNT_METRICS)} absolute; bound {tol[dt]:g}); rank 0 "
+                     f"wrote {sorted(set(w.split(os.sep)[0] for w in ckpt_files))}, "
+                     f"rank 1 nothing; {len(stats)} BatchNorm buffers bitwise equal; "
+                     f"launches per rank {runs[0]['counts']} = expected")
+    for i, (model, dt) in enumerate(steps, start=len(clis)):
+        step = ranks[0]["jobs"][i]
+        tag = f"{model} step in {dt}"
+        loss_rel = abs(step["loss"] - step["loss_one"]) / abs(step["loss_one"])
+        zero = dp_zero_gradient_biases(model)
+        l2 = {k: v for k, v in step["grad_l2"].items() if k not in zero}
+        cos = {k: v for k, v in step["grad_cos"].items() if k not in zero}
+        worst, low = max(l2, key=l2.get), min(cos, key=cos.get)
+        elem = max((k for k in step["grad_err"] if k not in zero),
+                   key=step["grad_err"].get)
+        # a bias whose true gradient is 0: both sides' noise below 1e-2 of the
+        # max gradient of its conv's kernel
+        noise = {k: max(step["grad_max"][k]) / step["grad_max"][k[:-4] + "kernel"][0]
+                 for k in zero}
+        if dt == "float32":
+            need(loss_rel <= 1e-4, f"{tag}: loss {step['loss']} vs world 1 "
+                 f"{step['loss_one']} (rel {loss_rel:.3e} > 1e-4)")
+            met_err = dp_step_metric_errs(step["mets"], step["mets_one"])
+            need(max(met_err.values()) <= 1e-4, f"{tag}: metrics beyond 1e-4 of world "
+                 f"1: {met_err}")
+            need(l2[worst] <= 1e-2, f"{tag}: gradients beyond 1e-2 of their l2 norm "
+                 f"at world 1: { {k: v for k, v in l2.items() if v > 1e-2} }")
+            need(all(v <= 1e-2 for v in noise.values()), f"{tag}: the zero-gradient "
+                 f"biases' noise over their kernels' max: {noise}")
+        else:
+            need(loss_rel <= 2e-2, f"{tag}: loss {step['loss']} vs world 1 "
+                 f"{step['loss_one']} (rel {loss_rel:.3e} > 2e-2)")
+            need(cos[low] >= 0.95, f"{tag}: gradient cosines below 0.95: "
+                 f"{ {k: v for k, v in cos.items() if v < 0.95} }")
+        met_err = dp_step_metric_errs(step["mets"], step["mets_one"])
+        note = (f"one {tag}: loss {step['loss']:.6f} vs {step['loss_one']:.6f} at "
+                f"world 1 (rel {loss_rel:.3e}), every metric within "
+                f"{max(met_err.values()):.3e} ({max(met_err, key=met_err.get)}); "
+                f"{len(l2)} gradients within "
+                f"{l2[worst]:.3e} of their l2 norm (worst {worst}), cosines >= "
+                f"{cos[low]:.6f} ({low}), largest element {step['grad_err'][elem]:.3e} "
+                f"of its max ({elem})")
+        if zero:
+            note += (f"; the {len(zero)} biases before a training BatchNorm (true "
+                     f"gradient 0) at most {max(noise.values()):.3e} of their "
+                     f"kernel's max")
+        if "step_ms" in step:
+            ms = step["step_ms"]
+            note += (f"; gradient buffer {step['grad_bytes']} bytes, gloo all-reduce "
+                     f"{step['reduce_ms']:.3f} ms; step {ms['group']:.3f} ms per rank "
+                     f"at {DP_RANKS} ranks on one card vs {ms['plain']:.3f} ms at "
+                     f"world 1 (two processes share the card and gloo goes through "
+                     f"the host: not a data-parallel rate)")
+        notes.append(note)
+    print(f"[dp-gloo] {DP_RANKS} ranks on cuda:0 over gloo ({card}), launch "
+          f"{secs:.3f} s: " + "; ".join(notes))
+    check(not fails, "dp-gloo: " + "; ".join(fails))
+    return total
+
+
+def dp_step_metric_errs(got: dict, want: dict) -> dict:
+    """Each step metric's difference (``_metric_err``); the U-Net's
+    per-class sums as the per-class CE where a class occurs, and its class
+    counts (integers summed over the ranks) exactly (0 or 1)."""
+    import numpy as np
+
+    out = {}
+    for key, v in want.items():
+        if key == "ce_class_sum":
+            seen = np.asarray(want["class_count"]) > 0
+            out["ce_per_class"] = _metric_err(
+                key, np.asarray(got[key])[seen] / np.asarray(got["class_count"])[seen],
+                np.asarray(v)[seen] / np.asarray(want["class_count"])[seen])
+        elif key == "class_count":
+            out[key] = float(got[key] != v)
+        else:
+            out[key] = _metric_err(key, got[key], v)
+    return out
+
+
+def dp_zero_gradient_biases(model: str) -> set:
+    """The parameters whose true gradient is 0: the VAE's conv biases that
+    feed a training BatchNorm (its batch mean takes the bias out again);
+    their computed gradients are rounding noise."""
+    if model != "vae":
+        return set()
+    n = len(VAE_CONVS) // 2 - 1
+    return ({f"encoder.Conv_{i}.bias" for i in range(n)}
+            | {f"decoder.Conv_{i}.bias" for i in range(n)}
+            | {"decoder.decoder_output.bias"})
+
+
+def phase_dp_voxelize(tmp: str, synthetic: str, card: str):
+    """``apps.voxelize`` on DP_RANKS ranks on cuda:0 over gloo: the
+    UNET_PARENTS synthetic structures in parts; ``merge_parts`` of them
+    equals phase 10's single-process build bitwise, id by id.  Returns the
+    ranks' K4 launches."""
+    import math
+
+    import numpy as np
+
+    from icsg3d_torch.apps.voxelize import merge_parts
+    from icsg3d_torch.data.store import GridDataset
+
+    out = os.path.join(tmp, "dp-vox")
+    argv = ["--synthetic", str(UNET_PARENTS), "--kinds", "perovskite,rocksalt",
+            "--nrot", "0", "--d", str(D), "--out", out, "--device", dp_device(),
+            "--dist-backend", "gloo"]
+    ranks, _, secs = torchrun(DP_RANKS, [{"kind": "cli", "app": "voxelize",
+                                          "argv": argv, "watch": out}], tmp, "dp-vox")
+    merged, whole = merge_parts(out), GridDataset(synthetic)
+    check(sorted(merged.ids) == sorted(whole.ids), "dp-voxelize: merged ids differ")
+    rows = [merged.index[i] for i in whole.ids]
+    for field, arr in whole.arrays.items():
+        check(np.array_equal(np.asarray(merged.arrays[field])[rows], np.asarray(arr)),
+              f"dp-voxelize: merged {field} differs from the single-process build")
+    total = dict(NO_LAUNCHES)
+    for r, rank in enumerate(ranks):
+        run = rank["jobs"][0]
+        want = math.ceil(run["samples"] / VOX_CHUNK)
+        check(run["counts"]["vox"] == want, f"dp-voxelize rank {r}: K4 launched "
+              f"{run['counts']['vox']} times for {run['samples']} structures")
+        check(all(w == "." or w.split(os.sep)[0] == f"part-{r}" for w in run["writes"]),
+              f"dp-voxelize rank {r} wrote {run['writes']}")
+        total["vox"] += run["counts"]["vox"]
+    print(f"[dp-voxelize] voxelize --synthetic {UNET_PARENTS} on {DP_RANKS} ranks on "
+          f"cuda:0 over gloo ({card}) in {secs:.3f} s (launch); parts "
+          f"{[rank['jobs'][0]['samples'] for rank in ranks]} samples in "
+          f"{[round(rank['jobs'][0]['seconds'], 3) for rank in ranks]} s; merge_parts "
+          f"equals the single-process build bitwise in every field; K4 launches per "
+          f"rank {[rank['jobs'][0]['counts']['vox'] for rank in ranks]}")
+    return total
+
+
 def main() -> None:
     try:
         import torch
@@ -2544,6 +3197,9 @@ def main() -> None:
     if not os.path.isdir(os.path.join(repo, "icsg3d_torch")):
         fail(f"no icsg3d_torch package beside {__file__}: run from a checkout")
     sys.path.insert(0, repo)
+    if sys.argv[1:2] == ["--dp-worker"]:  # a rank of phase 26-28's torchrun
+        dp_worker(sys.argv[2])
+        return
     torch.manual_seed(SEED)
 
     name, card = phase_device()
@@ -2561,6 +3217,16 @@ def main() -> None:
     rows += phase_backward_kernels(card, [
         ("dx", DX_SHAPES, BATCH), ("dw", DW_SHAPES, BATCH),
         ("dx", UNET_DX_NEW, UNET_BATCH), ("dw", UNET_TRAIN, UNET_BATCH)])
+    # the data-parallel ranks' batches (phases 26-27: VAE 20 -> 10 rows per
+    # rank, U-Net 10 -> 5): the VAE step's forwards, dx and dW at 10, the
+    # U-Net's training and eval forwards, dx and dW at 5.  Their errors join
+    # the kernels line, their times stay out of its sums.
+    vae_b, unet_b = BATCH // DP_RANKS, UNET_BATCH // DP_RANKS
+    checked += phase_kernels(card, TRAIN_FWD_SHAPES[:len(VAE_CONVS)], vae_b)
+    checked += phase_kernels(card, UNET_FWD_SHAPES + CONV_SHAPES[-UNET_CONVS:], unet_b)
+    checked += phase_backward_kernels(card, [
+        ("dx", DX_SHAPES, vae_b), ("dw", DW_SHAPES, vae_b),
+        ("dx", UNET_TRAIN[:0:-1], unet_b), ("dw", UNET_TRAIN, unet_b)])
     rows += phase_voxelize_kernel(card)
     rows += phase_valid_kernels(card, [
         ("fwd", VAE_CONVS, BATCH), ("dx", VAE_CONVS[1:], BATCH), ("dw", VAE_CONVS, BATCH),
@@ -2586,6 +3252,9 @@ def main() -> None:
         phase_spatial_parity(tmp, synthetic, class_weights, card)
         ckpts = phase_train_cgcnn(tmp, card)
         phase_cgcnn_cpu_parity(card)
+        dp_counts = [phase_dp_nccl(tmp, synthetic, card),
+                     phase_dp_gloo(tmp, synthetic, card),
+                     phase_dp_voxelize(tmp, synthetic, card)]
         phase_predict(tmp, ckpts, card)
         gen_cgcnn_counts = phase_generate_cgcnn(tmp, ckpts, card)
         eval_counts = phase_evaluate(tmp, synthetic, card)
@@ -2596,13 +3265,14 @@ def main() -> None:
 
     # launches on the main paths: generation (fused and host), VAE
     # training, the two dataset builds, U-Net training, both trainers at
-    # --spatial, generation with --cgcnn-ckpt, evaluate, interpolate (pair
-    # and sweep), view and the plots phase's trainers
+    # --spatial, the data-parallel ranks (training over NCCL and gloo, the
+    # build in parts), generation with --cgcnn-ckpt, evaluate, interpolate
+    # (pair and sweep), view and the plots phase's trainers
     gen_counts = [{"bias": r["by_epilogue"]["bias"],
                    "folded": sum(r["by_epilogue"][e] for e in FOLDED),
                    "dx": 0, "dw": 0, "vox": 0} for r in runs.values()]
     paths = gen_counts + [train_counts, vox_counts, unet_counts, spatial_counts,
-                          gen_cgcnn_counts, eval_counts, *interp_counts, view_counts,
+                          *dp_counts, gen_cgcnn_counts, eval_counts, *interp_counts, view_counts,
                           plots_counts]
     count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
                  "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox",

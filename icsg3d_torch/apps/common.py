@@ -7,6 +7,12 @@ trainer, read through its ``best.npz``.  The port cannot read Orbax
 directories.  Without a checkpoint the models start from a seeded fresh
 init, with the same warning as the JAX CLIs when a checkpoint directory
 holds none.
+
+Data parallelism across processes: launched by ``python -m
+torch.distributed.run`` (torchrun), a trainer or the dataset build joins
+its process group first (``init_distributed``); ``--device cuda`` is then
+this process's card, ``cuda:$LOCAL_RANK``.  Rank 0 alone writes the
+history and the plots.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from icsg3d_torch.config import CGCNNConfig, UNetConfig, VAEConfig
 from icsg3d_torch.models import CGCNN, ConditionalDFCVAE, UNet3D
+from icsg3d_torch.parallel import distributed
 from icsg3d_torch.parallel.mesh import DATA_AXIS, Mesh, make_mesh
 from icsg3d_torch.weights import load_flax_variables, load_npz, model_variables
 
@@ -86,40 +93,94 @@ def add_device_flag(parser) -> None:
              "The trainers take a comma-separated list: the first is the lead "
              "device (the model and every unsharded op), the list the "
              "--spatial mesh's devices ('cuda' alone: every visible card); "
-             "repeat one to put several mesh cells on it (cuda:0,cuda:0)",
+             "repeat one to put several mesh cells on it (cuda:0,cuda:0). "
+             "Under torchrun 'cuda' is this process's card, cuda:$LOCAL_RANK",
+    )
+
+
+def add_dist_flag(parser) -> None:
+    """The port-only ``--dist-backend`` flag of the CLIs that torchrun can
+    launch."""
+    parser.add_argument(
+        "--dist-backend", default=None, choices=("nccl", "gloo"),
+        help="torch.distributed backend under torchrun (default: nccl on "
+             "CUDA, gloo on the CPU); gloo lets several ranks share one card "
+             "(--device cuda:0 on every rank), which NCCL refuses",
     )
 
 
 def resolve_device(name: str) -> torch.device:
-    """The torch device for ``name``; never silently falls back to the CPU."""
+    """The torch device for ``name``; never silently falls back to the CPU.
+    Under a launcher a bare ``cuda`` is this process's card,
+    ``cuda:$LOCAL_RANK``, which must be visible: ranks are never stacked on
+    one card unless a card is named."""
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"--device {name}: CUDA is not available here; pass --device cpu "
             "to run the plain PyTorch path on the CPU"
         )
+    rank = distributed.local_rank()
+    if dev.type == "cuda" and dev.index is None and rank is not None:
+        if rank >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"--device {name} under a launcher is cuda:{rank} (LOCAL_RANK), "
+                f"but {torch.cuda.device_count()} card(s) are visible; name a "
+                "card (e.g. --device cuda:0 --dist-backend gloo) to put several "
+                "ranks on one"
+            )
+        dev = torch.device("cuda", rank)
     return dev
 
 
 def resolve_devices(spec: str) -> Tuple[torch.device, Optional[List[torch.device]]]:
     """A trainer's ``--device`` list: (the lead device, the mesh's devices).
-    The devices are None for a plain ``cuda``, which means every visible
-    card (``make_mesh``'s default)."""
+    The devices are None for a plain ``cuda`` outside a launcher, which
+    means every visible card (``make_mesh``'s default)."""
     names = [n.strip() for n in spec.split(",") if n.strip()]
     if not names:
         raise ValueError(f"--device names no device: {spec!r}")
     devices = [resolve_device(n) for n in names]
-    return devices[0], None if names == ["cuda"] else devices
+    every_card = names == ["cuda"] and distributed.local_rank() is None
+    return devices[0], None if every_card else devices
+
+
+def init_distributed(args):
+    """Join the process group of a launcher (torchrun) for a CLI with
+    ``--device`` and ``--dist-backend``; returns it, or None for a process
+    no launcher started.  The lead device is resolved first, so a missing
+    card raises before any rendezvous; with CUDA it becomes the current
+    card.  The backend defaults to NCCL for a card and gloo for the CPU."""
+    lead, _ = resolve_devices(args.device)
+    if not distributed.launched():
+        return None
+    if lead.type == "cuda":
+        torch.cuda.set_device(lead)
+    return distributed.initialize(
+        backend=args.dist_backend or ("nccl" if lead.type == "cuda" else "gloo"))
+
+
+def check_data_axis(args, parser, n_data: int) -> None:
+    """``--batch-size`` must split over the data axis: the processes times
+    ``n_data``, each process's own mesh rows (as JAX's data axis spans
+    every device of every host)."""
+    n = distributed.process_count() * n_data
+    if args.batch_size % n:
+        parser.error(
+            f"--batch-size {args.batch_size} must be divisible by the "
+            f"data mesh axis ({n} devices)"
+        )
 
 
 def spatial_mesh(args, parser) -> Tuple[torch.device, Optional[Mesh]]:
     """The lead device and the conv mesh of a trainer's ``--device`` and
     ``--spatial`` (icsg3d_tpu/apps/train_vae.py:129-138): a (data, spatial)
-    mesh for ``--spatial`` > 1, whose data axis must divide
-    ``--batch-size``; None for ``--spatial 1``, where the model runs on the
-    lead device alone."""
+    mesh for ``--spatial`` > 1; None for ``--spatial 1``, where the model
+    runs on the lead device alone.  The data axis (the processes times the
+    mesh's data rows) must divide ``--batch-size``."""
     lead, devices = resolve_devices(args.device)
     if args.spatial <= 1:
+        check_data_axis(args, parser, 1)
         return lead, None
     try:
         mesh = make_mesh(n_spatial=args.spatial, devices=devices)
@@ -129,12 +190,7 @@ def spatial_mesh(args, parser) -> Tuple[torch.device, Optional[Mesh]]:
             "device to put several mesh cells on it, e.g. --device cuda:0,cuda:0 "
             "(or cpu,cpu)"
         ) from e
-    n_data = mesh.shape[DATA_AXIS]
-    if args.batch_size % n_data:
-        parser.error(
-            f"--batch-size {args.batch_size} must be divisible by the "
-            f"data mesh axis ({n_data} devices)"
-        )
+    check_data_axis(args, parser, mesh.shape[DATA_AXIS])
     return lead, mesh
 
 
@@ -274,7 +330,10 @@ def plots_available() -> bool:
 
 def plot_dir(args) -> Optional[str]:
     """A trainer CLI's best-val plot directory, ``<args.ckpt>/plots``, where
-    matplotlib imports; elsewhere None (``plots_available``)."""
+    matplotlib imports (``plots_available``) and on rank 0; elsewhere
+    None."""
+    if distributed.process_index() != 0:
+        return None
     return os.path.join(args.ckpt, "plots") if plots_available() else None
 
 
@@ -291,7 +350,14 @@ def finish_history(args, history, metric: str = "loss", plots: bool = False):
     """Write ``<args.ckpt>/history.json`` for a trainer CLI: on ``--resume``
     appended to the earlier run's, truncated to the epochs its checkpoint
     holds (``args._resumed_epochs``); with ``plots`` also the loss curves,
-    ``<args.ckpt>/loss.png``.  Prints the best validation ``metric``."""
+    ``<args.ckpt>/loss.png``.  Prints the best validation ``metric``.  In a
+    process group rank 0 writes, and every rank waits for it."""
+    if distributed.process_index() == 0:
+        _write_history(args, history, metric, plots)
+    distributed.sync_hosts()
+
+
+def _write_history(args, history, metric, plots):
     os.makedirs(args.ckpt, exist_ok=True)
     hist_path = os.path.join(args.ckpt, "history.json")
     if args.resume and os.path.exists(hist_path):

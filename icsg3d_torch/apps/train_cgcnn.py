@@ -11,9 +11,16 @@ persistent batch rng seeded with ``seed + 1 + step`` (so a ``--resume``
 does not replay the permutations), remainders dropped.
 
 ``<ckpt>/best.npz`` is what ``predict --ckpt`` and ``generate
---cgcnn-ckpt`` read; ``--resume`` reads ``latest.npz``.  The JAX CLI's
-check that the batch divides the data mesh axis has no counterpart: the
-port trains CGCNN on one device.
+--cgcnn-ckpt`` read; ``--resume`` reads ``latest.npz``.
+
+Data parallelism across processes (the JAX CLI's data mesh axis): under
+``python -m torch.distributed.run --nproc-per-node N`` each process trains
+on its block of rows of every batch on its own card (``--device cuda`` is
+``cuda:$LOCAL_RANK``), with global masked-BN statistics, gradients and
+metrics.  ``--batch-size`` must divide by N (the data axis: one device
+per process), with the JAX CLI's message.  ``--dist-backend gloo --device
+cuda:0`` puts several ranks on one card.  Rank 0 writes the checkpoints
+and the history.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import numpy as np
 from icsg3d_torch.apps import common
 from icsg3d_torch.config import CGCNNConfig
 from icsg3d_torch.data.graphs import featurize_batch
+from icsg3d_torch.parallel import distributed
 from icsg3d_torch.train.checkpoints import CheckpointManager
 from icsg3d_torch.train.cgcnn import create_cgcnn_state, train_cgcnn
 
@@ -108,7 +116,9 @@ def main(argv=None):
                    help="resume from the latest checkpoint in --ckpt")
     p.add_argument("--ckpt", default="checkpoints/cgcnn")
     common.add_device_flag(p)
+    common.add_dist_flag(p)
     args = p.parse_args(argv)
+    group = common.init_distributed(args)
     device = common.resolve_device(args.device)
 
     cfg = CGCNNConfig()
@@ -144,9 +154,10 @@ def main(argv=None):
 
         return gen
 
-    state = create_cgcnn_state(cfg, args.lr, args.seed, device)
+    common.check_data_axis(args, p, 1)
+    state = create_cgcnn_state(cfg, args.lr, args.seed, device, group=group)
     if args.resume and common.weights_path(args.ckpt, "latest"):
-        CheckpointManager(args.ckpt).restore(state, "latest")
+        CheckpointManager(args.ckpt, group=group).restore(state, "latest")
         print(f"resumed from {args.ckpt}/latest at step {state.step}")
         # epochs actually in this checkpoint: finish_history truncates any
         # prior history beyond it
@@ -165,4 +176,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -22,6 +22,14 @@ float32.
   S``): ``--device cuda`` is every visible card, ``--device
   cuda:0,cuda:0`` a 1x2 mesh on one card, ``--device cpu,cpu`` one on the
   CPU.  The model, BatchNorm and the losses stay on the first device.
+- Data parallelism across processes (the JAX CLI's data mesh axis): under
+  ``python -m torch.distributed.run --nproc-per-node N`` each process
+  trains on its block of rows of every global batch on its own card
+  (``--device cuda`` is ``cuda:$LOCAL_RANK``), with global BatchNorm
+  moments, gradients and metrics; ``--batch-size`` must divide by N times
+  the mesh's data rows.  ``--dist-backend gloo --device cuda:0`` puts
+  several ranks on one card.  Rank 0 writes the checkpoints,
+  class_weights.json, history and plots.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ from icsg3d_torch.config import UNetConfig
 from icsg3d_torch.data.class_weights import inverse_frequency_weights
 from icsg3d_torch.data.splits import data_split
 from icsg3d_torch.data.store import BatchIterator, GridDataset
+from icsg3d_torch.parallel import distributed
 from icsg3d_torch.train.checkpoints import CheckpointManager
 from icsg3d_torch.train.unet import create_unet_state, prepare_unet_batch, train_unet
 
@@ -81,7 +90,9 @@ def main(argv=None):
                    help="min epochs between best-val plot refreshes")
     p.add_argument("--ckpt", default="checkpoints/unet")
     common.add_device_flag(p)
+    common.add_dist_flag(p)
     args = p.parse_args(argv)
+    group = common.init_distributed(args)
     device, mesh = common.spatial_mesh(args, p)
     if args.epoch_scan and not args.resident:
         p.error("--epoch-scan requires --resident")
@@ -100,11 +111,12 @@ def main(argv=None):
     )
     cfg = UNetConfig(num_classes=args.num_classes, layout=args.layout,
                      dtype=common.compute_dtype(device))
-    state = create_unet_state(cfg, args.lr, args.seed, device, spatial_mesh=mesh)
+    state = create_unet_state(cfg, args.lr, args.seed, device, spatial_mesh=mesh,
+                              group=group)
     model = state.model
     resuming = bool(args.resume and common.weights_path(args.ckpt, "latest"))
     if resuming:
-        CheckpointManager(args.ckpt).restore(state, "latest")
+        CheckpointManager(args.ckpt, group=group).restore(state, "latest")
         print(f"resumed from {args.ckpt}/latest at step {state.step}")
         # epochs actually in this checkpoint: finish_history truncates any prior
         # history beyond it
@@ -126,7 +138,6 @@ def main(argv=None):
     # the weighted loss value scales with these weights (they depend on the
     # data build): record them beside the checkpoint, and warn on --resume
     # when a rebuilt dataset changed them
-    os.makedirs(args.ckpt, exist_ok=True)
     cw_path = os.path.join(args.ckpt, "class_weights.json")
     cw_list = None if class_weights is None else [float(w) for w in class_weights]
     if resuming and os.path.exists(cw_path):
@@ -144,9 +155,11 @@ def main(argv=None):
                 f"to earlier epochs; compare the 'ce' (unweighted) metric "
                 f"instead"
             )
-    with open(cw_path, "w") as f:
-        json.dump({"class_weights": cw_list, "num_classes": args.num_classes,
-                   "data": args.data, "n_weight_samples": n_weight_rows}, f)
+    if distributed.process_index() == 0:
+        os.makedirs(args.ckpt, exist_ok=True)
+        with open(cw_path, "w") as f:
+            json.dump({"class_weights": cw_list, "num_classes": args.num_classes,
+                       "data": args.data, "n_weight_samples": n_weight_rows}, f)
 
     fields = (("density", "lattice", "species") if device_coords
               else ("density", "coords", "species"))
@@ -197,4 +210,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

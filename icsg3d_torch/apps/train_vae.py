@@ -20,6 +20,14 @@ parameters; on the CPU in float32.
   S``): ``--device cuda`` is every visible card, ``--device
   cuda:0,cuda:0`` a 1x2 mesh on one card, ``--device cpu,cpu`` one on the
   CPU.  The model, BatchNorm and the losses stay on the first device.
+- Data parallelism across processes (the JAX CLI's data mesh axis): under
+  ``python -m torch.distributed.run --nproc-per-node N`` each process
+  trains on its block of rows of every global batch on its own card
+  (``--device cuda`` is ``cuda:$LOCAL_RANK``), with global BatchNorm
+  moments, gradients and metrics; ``--batch-size`` must divide by N times
+  the mesh's data rows.  ``--dist-backend gloo --device cuda:0`` puts
+  several ranks on one card.  Rank 0 writes the checkpoints, history and
+  plots.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
 from icsg3d_torch.data.binning import bin_and_encode
 from icsg3d_torch.data.splits import data_split
 from icsg3d_torch.data.store import BatchIterator, GridDataset
+from icsg3d_torch.parallel import distributed
 from icsg3d_torch.train.checkpoints import CheckpointManager
 from icsg3d_torch.train.vae import (
     create_vae_state,
@@ -110,7 +119,9 @@ def main(argv=None):
     p.add_argument("--verbose-startup", action="store_true",
                    help="print per-stage startup timings")
     common.add_device_flag(p)
+    common.add_dist_flag(p)
     args = p.parse_args(argv)
+    group = common.init_distributed(args)
     device, mesh = common.spatial_mesh(args, p)
 
     t_start = time.time()
@@ -132,12 +143,13 @@ def main(argv=None):
         cond_bins=args.cond_bins, filters=common.parse_filters(args.filters),
         layout=args.layout, cond_repeat=args.cond_repeat, dtype=dtype,
     )
-    state = create_vae_state(cfg, args.lr, args.seed, device, spatial_mesh=mesh)
+    state = create_vae_state(cfg, args.lr, args.seed, device, spatial_mesh=mesh,
+                             group=group)
     model = state.model
     mark("vae init")
     # an Orbax `latest` directory raises with the export hint
     if args.resume and common.weights_path(args.ckpt, "latest"):
-        CheckpointManager(args.ckpt).restore(state, "latest")
+        CheckpointManager(args.ckpt, group=group).restore(state, "latest")
         print(f"resumed from {args.ckpt}/latest at step {state.step}")
         # epochs actually in this checkpoint: finish_history truncates any prior
         # history beyond it
@@ -237,4 +249,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -6,16 +6,22 @@ raises without CUDA):
 
 - CIF parsing stays on the host (crystal/cif.py, no pymatgen), each file
   under a 120 s parse budget (utils/timeout.py);
-- multi-process sharding strides the files by the ``torch.distributed``
-  rank and world size when a process group is initialised (else 0 and 1),
-  the functional replacement for the MPI rank stride
-  (create_matrices.py:107), with the filesystem as the sink;
+- multi-process sharding strides the files (and the synthetic
+  structures) by the ``torch.distributed`` rank and world size
+  (parallel/distributed.process_index / process_count: under
+  ``python -m torch.distributed.run`` the CLI joins the launcher's
+  process group first), the functional replacement for the MPI rank
+  stride (create_matrices.py:107), with the filesystem as the sink;
 - voxelization runs on the card: one launch of the voxelizer kernel per
   chunk of structures (data/voxel_build.py);
 - rotation augmentations are exact 90-degree grid rotations.
 
 Each process writes ``part-<k>/``; single-process runs write the dataset
-directly.  ``merge_parts`` combines the parts.
+directly.  ``merge_parts`` combines the parts.  The JAX package's
+synthetic build has every process build all N; here rank k builds the
+structures i % count == k (``build_synthetic``), so the merged parts hold
+the single-process build's rows (with ``--nrot`` > 0 each part draws its
+own rotations, as each process's CIF stride does in both packages).
 """
 
 from __future__ import annotations
@@ -31,18 +37,21 @@ from icsg3d_torch.config import GridSpec, VoxelizerConfig
 from icsg3d_torch.crystal.cif import read_cif
 from icsg3d_torch.data.store import FIELDS, GridDataset
 from icsg3d_torch.data.voxel_build import voxelize_structures
+from icsg3d_torch.parallel import distributed
 
-__all__ = ["voxelize_structures", "build_from_cifs", "merge_parts", "main"]
+__all__ = ["voxelize_structures", "build_from_cifs", "build_synthetic",
+           "merge_parts", "main"]
 
 
-def _process_stride():
-    """(rank, world size) of an initialised torch.distributed group, else
-    (0, 1)."""
-    import torch.distributed as dist
+def _stride(process_index: Optional[int], process_count: Optional[int]):
+    """(index, count) of the build's process stride: the arguments where
+    given, else the process group's rank and world size."""
+    return (distributed.process_index() if process_index is None else process_index,
+            distributed.process_count() if process_count is None else process_count)
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+
+def _destination(out_dir: str, pidx: int, pcount: int) -> str:
+    return out_dir if pcount == 1 else os.path.join(out_dir, f"part-{pidx}")
 
 
 def build_from_cifs(
@@ -62,9 +71,7 @@ def build_from_cifs(
     Multi-process: each process takes files where i % process_count ==
     process_index and writes ``part-<index>/`` under out_dir.
     """
-    rank, world = _process_stride()
-    pidx = process_index if process_index is not None else rank
-    pcount = process_count if process_count is not None else world
+    pidx, pcount = _stride(process_index, process_count)
 
     target_map: Dict[str, float] = {}
     if targets_csv:
@@ -121,8 +128,37 @@ def build_from_cifs(
     out_ids, arrays = voxelize_structures(
         structures, ids, targets, cfg=cfg, n_rot=n_rot, seed=seed, device=device
     )
-    dest = out_dir if pcount == 1 else os.path.join(out_dir, f"part-{pidx}")
-    return GridDataset.write(dest, out_ids, arrays)
+    return GridDataset.write(_destination(out_dir, pidx, pcount), out_ids, arrays)
+
+
+def build_synthetic(
+    out_dir: str,
+    n: int,
+    seed: int = 0,
+    cfg: VoxelizerConfig = VoxelizerConfig(),
+    n_rot: int = 0,
+    kinds=("perovskite",),
+    process_index: Optional[int] = None,
+    process_count: Optional[int] = None,
+    device="cuda",
+) -> GridDataset:
+    """``n`` synthetic structures (data/synthetic.build_dataset) into a
+    packed dataset.  Multi-process: each process takes the structures where
+    i % process_count == process_index and writes ``part-<index>/``."""
+    from icsg3d_torch.data import synthetic
+
+    pidx, pcount = _stride(process_index, process_count)
+    if pcount == 1:
+        return synthetic.build_dataset(out_dir, n=n, seed=seed, cfg=cfg,
+                                       n_rot=n_rot, kinds=kinds, device=device)
+    structures = synthetic.random_structures(n, seed=seed, kinds=kinds)
+    mine = range(pidx, n, pcount)
+    out_ids, arrays = voxelize_structures(
+        [structures[i] for i in mine], [f"syn-{i}" for i in mine],
+        [synthetic.synthetic_target(structures[i]) for i in mine],
+        cfg=cfg, n_rot=n_rot, seed=seed, device=device,
+    )
+    return GridDataset.write(_destination(out_dir, pidx, pcount), out_ids, arrays)
 
 
 def merge_parts(out_dir: str) -> GridDataset:
@@ -164,14 +200,14 @@ def main(argv=None):
     p.add_argument("--sigma-frac", type=float, default=1.0)
     p.add_argument("--seed", type=int, default=0)
     common.add_device_flag(p)
+    common.add_dist_flag(p)
     args = p.parse_args(argv)
+    common.init_distributed(args)
     device = common.resolve_device(args.device)
 
     cfg = VoxelizerConfig(grid=GridSpec(d=args.d), sigma_frac=args.sigma_frac)
     if args.synthetic:
-        from icsg3d_torch.data.synthetic import build_dataset
-
-        ds = build_dataset(
+        ds = build_synthetic(
             args.out, n=args.synthetic, seed=args.seed, cfg=cfg,
             n_rot=args.nrot, kinds=tuple(args.kinds.split(",")), device=device,
         )
@@ -183,9 +219,12 @@ def main(argv=None):
         )
     else:
         p.error("one of --cifs or --synthetic is required")
-    print(f"wrote {len(ds)} samples -> {args.out}")
+    print(f"wrote {len(ds)} samples -> {ds.path}")
     return ds
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -143,6 +143,22 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Device-mesh layout of the data-parallel and depth-sharded training.
+
+    ``data`` shards the batch (DP); ``spatial`` shards the depth axis of the
+    voxel grids with halo exchange.  In the port the data axis is the
+    processes of a torch.distributed group (parallel/distributed.py) times
+    the data axis of each process's own mesh (parallel/mesh.py).
+    """
+
+    data_axis: str = "data"
+    spatial_axis: str = "spatial"
+    data_parallel: int = -1     # -1: all devices
+    spatial_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """End-to-end pipeline (generation/eval) knobs.
 

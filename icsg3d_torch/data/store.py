@@ -150,15 +150,20 @@ class BatchIterator:
             yield batch
 
 
-def prefetch_to_device(iterator, device):
+def prefetch_to_device(iterator, device, group=None):
     """Counterpart of icsg3d_tpu's threaded prefetcher: each host numpy
     batch goes to ``device`` as tensors, on CUDA through pinned memory with
     a non-blocking copy, so the host does not wait on the transfer.  No
-    thread is needed at this size."""
+    thread is needed at this size.  With a torch.distributed process
+    ``group`` only this rank's rows of each batch are shipped
+    (parallel/mesh.shard_batch)."""
     import torch
+
+    from icsg3d_torch.parallel.mesh import shard_batch
 
     cuda = torch.device(device).type == "cuda"
     for batch in iterator:
+        batch = shard_batch(batch, group)
         out = {}
         for k, v in batch.items():
             t = torch.from_numpy(np.ascontiguousarray(v))

@@ -17,7 +17,10 @@ tensor, in f32, with count-nonzero denominators (exact zeros in real
 entries are not counted), and the second variance divided by the
 count_nonzero of the squared differences (sic).  The counts are integers,
 so no gradient flows through them.  Batch statistics at train AND
-inference time; there are no running buffers.
+inference time; there are no running buffers.  With a torch.distributed
+process ``group`` (data parallelism across processes) both counts and both
+sums of each masked BN are the global batch's, as under GSPMD: two
+differentiable all-reduces per BN, the counts exact (integers).
 
 The products are plain f32 matmuls (the JAX package computes them outside
 any Pallas kernel); on the card they stay f32, without TF32.  ``softplus``
@@ -35,6 +38,7 @@ from icsg3d_torch.config import CGCNNConfig
 from icsg3d_torch.data.graphs import gaussian_expand
 from icsg3d_torch.models.layers import Dense
 from icsg3d_torch.models.vae import _dtype
+from icsg3d_torch.parallel.distributed import all_reduce_sum
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:
@@ -42,23 +46,28 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _masked_batch_stats(x, mask, count_from_values: bool = True):
+def _masked_batch_stats(x, mask, count_from_values: bool = True, group=None):
     """Reference masked-BN statistics (cgcnn/cgcnn.py:79-81).
 
     mu = sum(x) / count_nonzero(x); var = sum((x-mu)^2 * mask) / denom, with
     denom count_nonzero(x), or count_nonzero of the squared differences for
-    the second BN.  x is already masked (zeros at padding).
+    the second BN.  x is already masked (zeros at padding).  With a process
+    ``group`` each count and sum is summed over the ranks first: (count, sum)
+    of x in one all-reduce, then of the squared differences in another.
     """
+    def count_and_sum(t):  # summed over the ranks with a group
+        both = torch.stack([torch.count_nonzero(t).float(), torch.sum(t)])
+        return both if group is None else all_reduce_sum(both, group)
+
     x = x.float()
     mask = mask.float()
-    count = torch.clamp(torch.count_nonzero(x).float(), min=1.0)
-    mu = torch.sum(x) / count
+    nz, sum_x = count_and_sum(x)
+    count = torch.clamp(nz, min=1.0)
+    mu = sum_x / count
     diff_sq = torch.square(x - mu) * mask
-    if count_from_values:
-        denom = count
-    else:
-        denom = torch.clamp(torch.count_nonzero(diff_sq).float(), min=1.0)
-    return mu, torch.sum(diff_sq) / denom
+    nz_sq, sum_sq = count_and_sum(diff_sq)
+    denom = count if count_from_values else torch.clamp(nz_sq, min=1.0)
+    return mu, sum_sq / denom
 
 
 def max_pool(x: torch.Tensor, activation=None) -> torch.Tensor:
@@ -80,8 +89,9 @@ class CrystalGraphConv(nn.Module):
 
     def __init__(self, atom_fea_len: int, nbr_fea_len: int,
                  bn_epsilon: float = 1e-5, dtype: str = "float32",
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None):
         super().__init__()
+        self.group = group
         self.nbr_fea_len = nbr_fea_len
         self.bn_epsilon = bn_epsilon
         self.dtype = _dtype(dtype)
@@ -116,7 +126,7 @@ class CrystalGraphConv(nn.Module):
         gated = gated * edge_mask
 
         mu1, var1 = _masked_batch_stats(gated, edge_mask.expand(gated.shape),
-                                        count_from_values=True)
+                                        count_from_values=True, group=self.group)
         gated = (gated - mu1) / torch.sqrt(var1 + self.bn_epsilon) * self.gamma1 \
             + self.beta1
         gated = gated * edge_mask
@@ -127,7 +137,7 @@ class CrystalGraphConv(nn.Module):
         summed = summed * node_mask
 
         mu2, var2 = _masked_batch_stats(summed, node_mask.expand(summed.shape),
-                                        count_from_values=False)
+                                        count_from_values=False, group=self.group)
         summed = (summed - mu2) / torch.sqrt(var2 + self.bn_epsilon) * self.gamma2 \
             + self.beta2
         summed = summed * node_mask
@@ -136,10 +146,11 @@ class CrystalGraphConv(nn.Module):
 
 
 class CGCNN(nn.Module):
-    """Full property-regression model (cgcnn/cgcnn.py:145-160)."""
+    """Full property-regression model (cgcnn/cgcnn.py:145-160).  ``group``
+    makes every conv's masked BN statistics global (module note)."""
 
     def __init__(self, cfg: CGCNNConfig = CGCNNConfig(),
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None):
         super().__init__()
         self.cfg = cfg
         self.spec = cfg.graph_spec()
@@ -148,7 +159,7 @@ class CGCNN(nn.Module):
         for i in range(cfg.n_conv):
             setattr(self, f"CrystalGraphConv_{i}", CrystalGraphConv(
                 cfg.atom_fea_len, self.spec.num_bond_features, cfg.bn_epsilon,
-                cfg.dtype, generator))
+                cfg.dtype, generator, group))
         self.Dense_1 = Dense(cfg.atom_fea_len, cfg.hidden_dim, generator)
         self.Dense_2 = Dense(cfg.hidden_dim, 1, generator)
 

@@ -19,6 +19,12 @@ depth-sharded (parallel/halo.conv_sharded) whenever the batch divides by
 ``data`` and the depth by ``spatial``, and the SAME kernel otherwise, as
 the JAX package's ``SpatialMajorConv`` does for indivisible shapes
 (models/layers.py:134-149).  BatchNorm and the activation stay global.
+
+With a torch.distributed process ``group`` (parallel/distributed.py; data
+parallelism across processes, each holding an equal block of rows of the
+global batch) the training BatchNorm normalises with the global batch's
+moments, as Flax's BatchNorm does under GSPMD over the data axis; the
+running statistics then update identically on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from icsg3d_torch.ops.conv import conv3d_same, conv3d_same_diff, fold_batchnorm
+from icsg3d_torch.parallel.distributed import all_reduce_mean
 from icsg3d_torch.parallel.halo import conv_sharded, mesh_divides
 from icsg3d_torch.parallel.mesh import Mesh
 
@@ -120,7 +127,7 @@ class BatchNorm(nn.Module):
         """Running-statistics BN with Flax's formula, out in x.dtype."""
         return self._normalize(x, self.running_mean, self.running_var, x.dtype)
 
-    def train_forward(self, x: torch.Tensor) -> torch.Tensor:
+    def train_forward(self, x: torch.Tensor, group=None) -> torch.Tensor:
         """Batch-statistics BN over all but the channel axis, out in x.dtype;
         updates the running statistics.
 
@@ -130,11 +137,20 @@ class BatchNorm(nn.Module):
         normalises and enters the running variance (torch's own
         batch_norm would put the unbiased one there):
         ra = momentum * ra + (1 - momentum) * batch.
+
+        With a process ``group`` E[x] and E[x^2] are the global batch's:
+        the mean over the ranks of each rank's own, through one
+        differentiable all-reduce.  Every rank holds the same number of
+        rows (``parallel/mesh.shard_batch`` refuses a batch it cannot split
+        evenly), so that mean is the moment over all rows.
         """
         xf = x.float()
         dims = tuple(range(x.dim() - 1))
         mean = xf.mean(dim=dims)
-        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        mean_sq = (xf * xf).mean(dim=dims)
+        if group is not None:
+            mean, mean_sq = all_reduce_mean(torch.stack([mean, mean_sq]), group)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
@@ -152,6 +168,7 @@ def conv_block(
     out_dtype: Optional[torch.dtype] = None,
     train: bool = False,
     mesh: Optional[Mesh] = None,
+    group=None,
 ) -> torch.Tensor:
     """Conv3D(3x3x3, SAME) + BatchNorm + activation.
 
@@ -162,7 +179,8 @@ def conv_block(
     Eval mode is one fused kernel call.  ``train=True`` runs the
     differentiable conv and batch-statistics BN (updating the running
     statistics); its output is in x.dtype and ``out_dtype`` is ignored.
-    ``mesh`` shards the conv in depth where it divides x (module note).
+    ``mesh`` shards the conv in depth where it divides x, and ``group``
+    makes the training BN's moments global (module note).
     """
     if order == "relu_bn":
         if act != "relu":
@@ -177,8 +195,8 @@ def conv_block(
     if train:
         y = conv.diff(x, mesh)
         if order == "relu_bn":
-            return bn.train_forward(torch.relu(y))
-        y = bn.train_forward(y)
+            return bn.train_forward(torch.relu(y), group)
+        y = bn.train_forward(y, group)
         return leaky_relu(y, slope) if act == "leaky" else torch.relu(y)
     scale, shift = bn.fold()
     fused = dict(scale=scale, shift=shift, epilogue=epilogue, out_dtype=out_dtype,

@@ -26,7 +26,10 @@ only, returning the post-ReLU, pre-BN activations of the tap convs.
 conv in depth where the mesh divides it (icsg3d_tpu/models/unet.py:46-48,
 101-104); BatchNorm, pools, upsampling and the 1x1x1 heads stay global.
 ``unet_features`` never shards: the frozen perceptual U-Net gets no mesh
-in the JAX package either (apps/train_vae.py:166-171).
+in the JAX package either (apps/train_vae.py:166-171).  ``group`` (a
+torch.distributed process group, default None) makes the training
+BatchNorm take the global batch's moments across the data-parallel
+processes (models/layers.BatchNorm.train_forward).
 """
 
 from __future__ import annotations
@@ -51,10 +54,11 @@ from icsg3d_torch.parallel.mesh import Mesh
 class UNet3D(nn.Module):
     def __init__(self, cfg: UNetConfig = UNetConfig(),
                  generator: Optional[torch.Generator] = None,
-                 spatial_mesh: Optional[Mesh] = None):
+                 spatial_mesh: Optional[Mesh] = None, group=None):
         super().__init__()
         self.cfg = cfg
         self.spatial_mesh = spatial_mesh
+        self.group = group
         plan = []  # (cin, cout) per conv, in graph order
         ch = cfg.in_channels
         skips = []
@@ -95,6 +99,7 @@ class UNet3D(nn.Module):
             return conv_block(
                 h, getattr(self, f"conv{idx}"), getattr(self, f"bn{idx}"),
                 order="relu_bn", act="relu", train=train, mesh=self.spatial_mesh,
+                group=self.group,
             )
 
         skips = []

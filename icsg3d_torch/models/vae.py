@@ -22,6 +22,10 @@ train/vae.py.
 conv in depth where the mesh divides it: the blocks, the encoder's last
 conv and the output head (icsg3d_tpu/models/vae.py:49, 104-108, 194-197,
 236-239).  BatchNorm, pools, upsampling and the dense layers stay global.
+
+``group`` (a torch.distributed process group, default None) makes every
+training BatchNorm take the global batch's moments across the data-parallel
+processes (models/layers.BatchNorm.train_forward).
 """
 
 from __future__ import annotations
@@ -52,10 +56,11 @@ def _dtype(name: str) -> torch.dtype:
 class Encoder(nn.Module):
     def __init__(self, cfg: VAEConfig = VAEConfig(),
                  generator: Optional[torch.Generator] = None,
-                 spatial_mesh: Optional[Mesh] = None):
+                 spatial_mesh: Optional[Mesh] = None, group=None):
         super().__init__()
         self.cfg = cfg
         self.spatial_mesh = spatial_mesh
+        self.group = group
         cin = cfg.grid.channels + cfg.cond_bins * cfg.cond_repeat
         for i, f in enumerate(cfg.filters):
             self.add_module(f"Conv_{i}", Conv3d(cin, f, generator=generator))
@@ -84,7 +89,7 @@ class Encoder(nn.Module):
             x = conv_block(
                 x, getattr(self, f"Conv_{i}"), getattr(self, f"BatchNorm_{i}"),
                 order="bn_act", act="leaky", slope=cfg.leaky_slope, train=train,
-                mesh=self.spatial_mesh,
+                mesh=self.spatial_mesh, group=self.group,
             )
             x = max_pool_3d(x)
         x = getattr(self, f"Conv_{len(cfg.filters)}").diff(x, self.spatial_mesh)
@@ -97,10 +102,11 @@ class Encoder(nn.Module):
 class Decoder(nn.Module):
     def __init__(self, cfg: VAEConfig = VAEConfig(),
                  generator: Optional[torch.Generator] = None,
-                 spatial_mesh: Optional[Mesh] = None):
+                 spatial_mesh: Optional[Mesh] = None, group=None):
         super().__init__()
         self.cfg = cfg
         self.spatial_mesh = spatial_mesh
+        self.group = group
         # d / 2^(len-1) seed grid: (4,4,4,4) at the reference defaults
         self.start = cfg.grid.d // 2 ** (len(cfg.filters) - 1)
         self.c0 = max(cfg.latent_dim // self.start ** 3, 1)
@@ -131,7 +137,7 @@ class Decoder(nn.Module):
             x = conv_block(
                 x, getattr(self, f"Conv_{i}"), getattr(self, f"BatchNorm_{i}"),
                 order="bn_act", act="leaky", slope=cfg.leaky_slope, train=train,
-                mesh=self.spatial_mesh,
+                mesh=self.spatial_mesh, group=self.group,
             )
             if i < n - 1:
                 x = upsample_3d(x)
@@ -140,22 +146,22 @@ class Decoder(nn.Module):
         return conv_block(
             x.float(), self.decoder_output, self.output_bn,
             order="bn_act", act="relu", out_dtype=torch.float32, train=train,
-            mesh=self.spatial_mesh,
+            mesh=self.spatial_mesh, group=self.group,
         )
 
 
 class ConditionalDFCVAE(nn.Module):
     """Encoder + reparameterized sample + decoder; ``encode``/``decode`` as
-    in the Flax module.  Setting ``spatial_mesh`` sets the encoder's and the
-    decoder's."""
+    in the Flax module.  Setting ``spatial_mesh`` or ``group`` sets the
+    encoder's and the decoder's."""
 
     def __init__(self, cfg: VAEConfig = VAEConfig(),
                  generator: Optional[torch.Generator] = None,
-                 spatial_mesh: Optional[Mesh] = None):
+                 spatial_mesh: Optional[Mesh] = None, group=None):
         super().__init__()
         self.cfg = cfg
-        self.encoder = Encoder(cfg, generator, spatial_mesh)
-        self.decoder = Decoder(cfg, generator, spatial_mesh)
+        self.encoder = Encoder(cfg, generator, spatial_mesh, group)
+        self.decoder = Decoder(cfg, generator, spatial_mesh, group)
 
     @property
     def spatial_mesh(self) -> Optional[Mesh]:
@@ -164,6 +170,14 @@ class ConditionalDFCVAE(nn.Module):
     @spatial_mesh.setter
     def spatial_mesh(self, mesh: Optional[Mesh]) -> None:
         self.encoder.spatial_mesh = self.decoder.spatial_mesh = mesh
+
+    @property
+    def group(self):
+        return self.encoder.group
+
+    @group.setter
+    def group(self, group) -> None:
+        self.encoder.group = self.decoder.group = group
 
     def forward(self, x, cond, eps, train: bool = False):
         """Full VAE pass (vae.py:275-283) with the reparameterization noise

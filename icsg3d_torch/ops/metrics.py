@@ -73,11 +73,20 @@ def recall_from_labels(labels, probs):
     return tp / (_count(labels, probs) + KERAS_EPSILON)
 
 
-def weighted_recall_from_labels(labels, probs):
+def weighted_recall_parts(labels, probs):
+    """(true positives, possible) of ``weighted_recall_from_labels``: sums
+    over the batch, which add up across data-parallel ranks."""
     fg = labels != 0
     tp = torch.sum(torch.round(_p_true(labels, probs)) * fg)
-    possible = torch.sum(fg.float())
+    return tp, torch.sum(fg.float())
+
+
+def weighted_recall_from_parts(tp, possible):
     return tp / (possible + KERAS_EPSILON)
+
+
+def weighted_recall_from_labels(labels, probs):
+    return weighted_recall_from_parts(*weighted_recall_parts(labels, probs))
 
 
 def precision_from_labels(labels, probs):
@@ -86,10 +95,21 @@ def precision_from_labels(labels, probs):
     return tp / (predicted + KERAS_EPSILON)
 
 
-def f1_score_from_labels(labels, probs):
+def f1_parts(labels, probs):
+    """(true positives, predicted positives, voxels) of
+    ``f1_score_from_labels``: sums over the batch, which add up across
+    data-parallel ranks."""
     # one shared true-positive count for precision and recall
     tp = torch.sum(torch.round(_p_true(labels, probs)))
     predicted = torch.sum(torch.round(torch.clamp(probs, 0.0, 1.0)))
+    return tp, predicted, _count(labels, probs)
+
+
+def f1_from_parts(tp, predicted, count):
     p = tp / (predicted + KERAS_EPSILON)
-    r = tp / (_count(labels, probs) + KERAS_EPSILON)
+    r = tp / (count + KERAS_EPSILON)
     return 2.0 * p * r / (p + r + KERAS_EPSILON)
+
+
+def f1_score_from_labels(labels, probs):
+    return f1_from_parts(*f1_parts(labels, probs))

@@ -11,11 +11,15 @@ A device may appear in the mesh more than once, as JAX's virtual CPU
 devices let one host hold a mesh: ``[cpu] * 8`` is a 4x2 mesh for the CPU
 tests, ``[cuda:0, cuda:0]`` a 1x2 mesh on one card.
 
-Not ported: the GSPMD placement helpers ``batch_sharding``, ``replicated``
-and ``shard_batch`` (mesh.py:61-90).  They name shardings of a global
-array for XLA's partitioner; torch has no such array, and the port places
-each slab itself.  Data parallelism across processes (NCCL) is not ported
-either (ROADMAP.md).
+Data parallelism across processes: JAX's data axis spans every device of
+every host, and ``shard_batch`` (mesh.py:77-90) lays the global batch's row
+blocks over it.  The port runs one process per card (parallel/distributed.py),
+so its data axis is the processes of a torch.distributed group times each
+process's own mesh; ``shard_batch`` here gives a process its block of rows
+of the global batch, which every process builds alike.  Not ported: the
+GSPMD placement helpers ``batch_sharding`` and ``replicated``
+(mesh.py:61-74), which name shardings of a global array for XLA's
+partitioner; torch has no such array.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from icsg3d_torch.parallel.distributed import group_rank, group_size
 
 DATA_AXIS = "data"
 SPATIAL_AXIS = "spatial"
@@ -82,3 +88,27 @@ def make_mesh(
     for i, d in enumerate(devices[: n_data * n_spatial]):
         grid[i // n_spatial, i % n_spatial] = d
     return Mesh(grid)
+
+
+def shard_batch(batch, group):
+    """This process's rows of a global batch (a dict of arrays or tensors,
+    or one of them): rank r of W takes the contiguous rows [r*B/W,
+    (r+1)*B/W), as ``P("data")`` lays row blocks over the data axis in
+    device order.  Rank-0 leaves (a scalar) are not split, as JAX
+    replicates them.  ``group`` None (a single process) returns the batch
+    as it is; a batch that W does not divide raises."""
+    rank, world = group_rank(group), group_size(group)
+    if world == 1:
+        return batch
+
+    def rows(x):
+        if np.ndim(x) == 0:
+            return x
+        if len(x) % world:
+            raise ValueError(f"a batch of {len(x)} rows does not split over "
+                             f"{world} processes")
+        k = len(x) // world
+        return x[rank * k:(rank + 1) * k]
+
+    return ({k: rows(v) for k, v in batch.items()} if isinstance(batch, dict)
+            else rows(batch))

@@ -6,6 +6,12 @@ checkpointing.  One train step runs the CGCNN forward (the masked BN uses
 the live batch's statistics), the loss, the backward pass and one Adam
 update, in f32.  PyTorch runs the steps eagerly; the JAX package jits
 them.
+
+Data parallelism across processes (train/cgcnn.py:75-126 of the JAX
+package shards every batch over its ``data`` axis): with a process group
+in the train state each rank takes its block of rows of every batch, the
+masked BN statistics are global (models/cgcnn.py), and the gradients and
+metrics are averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -19,17 +25,20 @@ from icsg3d_torch.config import CGCNNConfig
 from icsg3d_torch.data.store import prefetch_to_device
 from icsg3d_torch.models import CGCNN
 from icsg3d_torch.ops import losses
+from icsg3d_torch.parallel.distributed import mean_over_ranks
 from icsg3d_torch.train.checkpoints import CheckpointManager
 from icsg3d_torch.train.state import TrainState
 from icsg3d_torch.train.vae import _host_metrics
 
 
 def create_cgcnn_state(cfg: CGCNNConfig, learning_rate: float, seed: int,
-                       device) -> TrainState:
+                       device, group=None) -> TrainState:
     """A seeded fresh CGCNN (Flax's lecun-normal distribution, not its
-    bits) on ``device`` with its Adam optimizer."""
+    bits) on ``device`` with its Adam optimizer; ``group``, a
+    torch.distributed process group, trains it data-parallel across
+    processes (the module note)."""
     gen = torch.Generator().manual_seed(seed)
-    return TrainState.create(CGCNN(cfg, gen).to(device), learning_rate)
+    return TrainState.create(CGCNN(cfg, gen, group).to(device), learning_rate, group)
 
 
 def cgcnn_forward(model: CGCNN, batch) -> torch.Tensor:
@@ -48,19 +57,19 @@ def _cgcnn_losses(model: CGCNN, batch):
 def make_cgcnn_steps(model: CGCNN):
     """Build (train_step, eval_step): ``(state, batch) -> metrics`` (tensors
     on the model's device; no host sync) for the state that holds
-    ``model``."""
+    ``model``.  With a process group in the state the batch is this rank's
+    rows and the metrics are the global batch's."""
 
     def train_step(state: TrainState, batch):
         state.optimizer.zero_grad(set_to_none=True)
         loss, mets = _cgcnn_losses(model, batch)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
-        return mets
+        state.apply_gradients()
+        return mean_over_ranks(mets, state.group)
 
     def eval_step(state: TrainState, batch):
         with torch.no_grad():
-            return _cgcnn_losses(model, batch)[1]
+            return mean_over_ranks(_cgcnn_losses(model, batch)[1], state.group)
 
     return train_step, eval_step
 
@@ -79,17 +88,20 @@ def train_cgcnn(
     means, best-val-MAE and latest checkpoints, a final ``latest`` save.
     train_batches/val_batches are zero-arg callables returning a fresh
     iterable of host numpy batches per epoch (remainders dropped by the
-    caller).  Returns (state, history)."""
+    caller).  With a process group in ``state`` each rank trains on its
+    rows of every batch and only rank 0 writes checkpoints.  Returns
+    (state, history)."""
     train_step, eval_step = make_cgcnn_steps(model)
-    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    group = state.group
+    ckpt = CheckpointManager(checkpoint_dir, group=group) if checkpoint_dir else None
     device = next(model.parameters()).device
     history = []
     for epoch in range(epochs):
         t0 = time.time()
         train_mets = [train_step(state, b)
-                      for b in prefetch_to_device(train_batches(), device)]
+                      for b in prefetch_to_device(train_batches(), device, group)]
         val_mets = [eval_step(state, b)
-                    for b in prefetch_to_device(val_batches(), device)]
+                    for b in prefetch_to_device(val_batches(), device, group)]
         tm = _host_metrics(train_mets)
         if not tm:
             raise ValueError(

@@ -16,6 +16,12 @@ The files are flat ``.npz`` with Flax-named keys (icsg3d_torch/weights.py):
 
 Every write goes to a temporary file that ``os.replace`` then swaps in
 atomically, so a kill mid-save leaves the previous checkpoint whole.
+
+Data parallelism across processes: with a torch.distributed ``group`` the
+ranks hold identical states and see the same global metric, so they agree
+on every best/latest decision; rank 0 alone writes (the directory too),
+and every rank waits for it at ``sync_hosts`` after each save.  Every rank
+reads (``restore``, ``best_metric.json``).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from icsg3d_torch.parallel.distributed import group_rank, sync_hosts
 from icsg3d_torch.train.state import TrainState
 
 
@@ -49,9 +56,12 @@ class PlotThinning:
 class CheckpointManager:
     """Saves `best` and `latest` train states under a directory."""
 
-    def __init__(self, directory: str, mode: str = "min"):
+    def __init__(self, directory: str, mode: str = "min", group=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.group = group
+        self.writer = group_rank(group) == 0
+        if self.writer:
+            os.makedirs(self.directory, exist_ok=True)
         self.mode = mode
         self.best_metric: Optional[float] = None
         self.last_latest_epoch: Optional[int] = None  # set by save_epoch
@@ -100,9 +110,15 @@ class CheckpointManager:
             json.dump(obj, f)
         os.replace(tmp, meta)  # atomic: no truncated json on kill
 
+    def _sync(self) -> None:
+        if self.group is not None:
+            sync_hosts(self.group)
+
     def save_latest(self, state: TrainState) -> None:
-        self._write("latest", state.arrays(with_optimizer=True))
-        self._write_json("progress.json", {"step": int(state.step)})
+        if self.writer:
+            self._write("latest", state.arrays(with_optimizer=True))
+            self._write_json("progress.json", {"step": int(state.step)})
+        self._sync()
 
     def save_epoch(self, state: TrainState, metric: float, epoch: int,
                    latest_every: int = 1) -> bool:
@@ -116,20 +132,27 @@ class CheckpointManager:
             return False
         if due:
             self.last_latest_epoch = epoch
+        if improved:
+            self.best_metric = float(metric)
+        if self.writer:
+            self._save(state, improved, due)
+        self._sync()
+        return improved
+
+    def _save(self, state: TrainState, improved: bool, due: bool) -> None:
+        if due:
             full = state.arrays(with_optimizer=True)
             infer = {k: v for k, v in full.items() if not k.startswith("opt_state/")}
         else:
             full = None
             infer = state.arrays(with_optimizer=False)
         if improved:
-            self.best_metric = float(metric)
             self._write("best", infer)
             self._write_json("best_metric.json",
                              {"metric": self.best_metric, "mode": self.mode})
         if full is not None:
             self._write("latest", full)
             self._write_json("progress.json", {"step": int(full["step"])})
-        return improved
 
     def restore(self, state: TrainState, which: str = "best") -> TrainState:
         """Load `which` into ``state`` in place (the model, the step, and for

@@ -7,6 +7,11 @@ Counterpart of icsg3d_tpu/train/state.py.  The optimizer is
 lr * m_hat / (sqrt(v_hat) + eps), is optax's.  ``arrays``/``load_arrays``
 carry the whole state as a flat Flax-named dict of numpy arrays, the
 port's checkpoint format (train/checkpoints.py).
+
+``group`` (a torch.distributed process group, default None) is the data
+axis across processes: ``reduce_gradients`` averages the gradients over its
+ranks before the Adam step, so every rank applies the global batch's
+update to its replica of the parameters.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from icsg3d_torch.parallel import distributed
 from icsg3d_torch.weights import (
     flatten,
     flax_key,
@@ -36,12 +42,27 @@ class TrainState:
     model: nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    group: object = None
 
     @classmethod
-    def create(cls, model: nn.Module, learning_rate: float) -> "TrainState":
+    def create(cls, model: nn.Module, learning_rate: float,
+               group=None) -> "TrainState":
         adam = torch.optim.Adam(model.parameters(), lr=learning_rate,
                                 betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
-        return cls(model, adam, 0)
+        return cls(model, adam, 0, group)
+
+    def reduce_gradients(self) -> None:
+        """Average the gradients over ``group``'s ranks (one all-reduce of
+        a flat buffer); a no-op for a single process."""
+        if self.group is not None:
+            distributed.reduce_gradients(self.model.parameters(), self.group)
+
+    def apply_gradients(self) -> None:
+        """The update after ``backward``: the gradients' all-reduce, one
+        Adam step, the step count."""
+        self.reduce_gradients()
+        self.optimizer.step()
+        self.step += 1
 
     def arrays(self, with_optimizer: bool = True) -> Dict[str, np.ndarray]:
         """Flat Flax-named state: params/..., batch_stats/..., step, and with

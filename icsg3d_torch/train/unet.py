@@ -14,6 +14,13 @@ The class weights are applied for real (the reference compiled its loss
 with the integer num_classes as the weight vector, unet/unet.py:252-254);
 ``class_weights=None`` trains unweighted.  With ``plot_dir`` the loop
 draws the best-val segmentation panels (matplotlib must import).
+
+Data parallelism across processes (the JAX package's ``data`` mesh axis,
+train/unet.py:356-460): with a process group in the train state each rank
+takes its block of rows of every global batch; BatchNorm, the gradients
+and the metrics are the global batch's.  ``f1`` and ``weighted_recall`` are
+ratios of sums over the batch and ``ce_class_sum``/``class_count`` are
+sums, so the ranks add those sums up before any ratio is taken.
 """
 
 from __future__ import annotations
@@ -29,36 +36,44 @@ from icsg3d_torch.config import UNetConfig
 from icsg3d_torch.data.store import prefetch_to_device
 from icsg3d_torch.models import UNet3D
 from icsg3d_torch.ops import losses, metrics
-from icsg3d_torch.parallel.mesh import Mesh
+from icsg3d_torch.parallel.distributed import all_reduce_, group_rank, group_size
+from icsg3d_torch.parallel.mesh import Mesh, shard_batch
 from icsg3d_torch.train.checkpoints import CheckpointManager, PlotThinning
 from icsg3d_torch.train.state import TrainState
 from icsg3d_torch.train.vae import _assemble_x, _host_metrics
 
 
 def create_unet_state(cfg: UNetConfig, learning_rate: float, seed: int,
-                      device, spatial_mesh: Optional[Mesh] = None) -> TrainState:
+                      device, spatial_mesh: Optional[Mesh] = None,
+                      group=None) -> TrainState:
     """A seeded fresh U-Net (Flax's lecun-normal distribution, not its
     bits) on ``device`` with its Adam optimizer.  ``spatial_mesh`` shards
     its convs in depth (models/unet.py; train/unet.py:40-47 of the JAX
-    package); ``device`` is the lead device, where the parameters live."""
+    package); ``device`` is the lead device, where the parameters live.
+    ``group``, a torch.distributed process group, trains it data-parallel
+    across processes (the module note)."""
     gen = torch.Generator().manual_seed(seed)
-    model = UNet3D(cfg, gen, spatial_mesh).to(device)
-    return TrainState.create(model, learning_rate)
+    model = UNet3D(cfg, gen, spatial_mesh, group).to(device)
+    return TrainState.create(model, learning_rate, group)
 
 
-def _unet_losses(model: UNet3D, batch, class_weights: torch.Tensor, train: bool):
+def _unet_losses(model: UNet3D, batch, class_weights: torch.Tensor, train: bool,
+                 group=None):
     """(total loss, metrics) of one batch (train/unet.py:60-115).
 
     Consumes integer species labels (batch["labels"]); the one-hot and the
     binary occupancy derive on the device.
     """
     soft, sig = model(_assemble_x(batch, None), train=train)
-    return losses_from_logits(soft, sig, batch["labels"], class_weights)
+    return losses_from_logits(soft, sig, batch["labels"], class_weights, group)
 
 
 def losses_from_logits(soft: torch.Tensor, sig: torch.Tensor, labels: torch.Tensor,
-                       class_weights: torch.Tensor):
-    """The loss and metrics of ``_unet_losses`` from the two heads' logits."""
+                       class_weights: torch.Tensor, group=None):
+    """The loss and metrics of ``_unet_losses`` from the two heads' logits.
+    With a process ``group`` the metrics are the global batch's: the means
+    averaged over the ranks, the sums (per-class CE and counts, and the
+    parts of f1 and weighted recall) summed, in one all-reduce."""
     labels = labels.long()
     y_sig = (labels != 0).float()[..., None]
     l_soft = torch.mean(
@@ -76,15 +91,26 @@ def losses_from_logits(soft: torch.Tensor, sig: torch.Tensor, labels: torch.Tens
         nll = -torch.log(p_true)
         flat_l = labels.reshape(-1)
         zeros = torch.zeros(nc, dtype=torch.float32, device=soft.device)
+        means = torch.stack([loss.detach(), l_soft.detach(), l_sig.detach(), nll.mean()])
+        f1 = metrics.f1_parts(labels, probs)
+        wr = metrics.weighted_recall_parts(labels, probs)
+        ce_class_sum = zeros.index_add(0, flat_l, nll.reshape(-1))
+        class_count = zeros.index_add(0, flat_l, torch.ones_like(nll).reshape(-1))
+        if group is not None:
+            flat = all_reduce_(torch.cat([means, torch.stack([*f1, *wr]), ce_class_sum,
+                                          class_count]), group)
+            means, parts, ce_class_sum, class_count = flat.split([4, 5, nc, nc])
+            means = means / group_size(group)
+            f1, wr = parts[:3], parts[3:]
         mets = {
-            "loss": loss.detach(),
-            "loss_soft": l_soft.detach(),
-            "loss_sig": l_sig.detach(),
-            "ce": nll.mean(),
-            "ce_class_sum": zeros.index_add(0, flat_l, nll.reshape(-1)),
-            "class_count": zeros.index_add(0, flat_l, torch.ones_like(nll).reshape(-1)),
-            "f1": metrics.f1_score_from_labels(labels, probs),
-            "weighted_recall": metrics.weighted_recall_from_labels(labels, probs),
+            "loss": means[0],
+            "loss_soft": means[1],
+            "loss_sig": means[2],
+            "ce": means[3],
+            "ce_class_sum": ce_class_sum,
+            "class_count": class_count,
+            "f1": metrics.f1_from_parts(*f1),
+            "weighted_recall": metrics.weighted_recall_from_parts(*wr),
         }
     return loss, mets
 
@@ -95,7 +121,9 @@ def make_unet_steps(model: UNet3D, class_weights=None, resident: bool = False):
 
     resident=True builds steps for a dataset kept on the device: they take
     ``(state, data, idx)`` with ``data`` the whole split and ``idx`` the
-    batch's row indices, and gather the batch on the device.
+    batch's row indices, and gather the batch on the device.  With a
+    process group in the state the batch (or ``idx``) is this rank's rows
+    and the metrics are the global batch's.
     """
     nc = model.cfg.num_classes
     device = next(model.parameters()).device
@@ -105,15 +133,14 @@ def make_unet_steps(model: UNet3D, class_weights=None, resident: bool = False):
 
     def train_step(state: TrainState, batch):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, mets = _unet_losses(state.model, batch, cw, train=True)
+        loss, mets = _unet_losses(state.model, batch, cw, True, state.group)
         loss.backward()
-        state.optimizer.step()
-        state.step += 1
+        state.apply_gradients()
         return mets
 
     def eval_step(state: TrainState, batch):
         with torch.no_grad():
-            return _unet_losses(state.model, batch, cw, train=False)[1]
+            return _unet_losses(state.model, batch, cw, False, state.group)[1]
 
     if not resident:
         return train_step, eval_step
@@ -225,14 +252,19 @@ def train_unet(
     permutation ``np.random.default_rng((shuffle_seed, epoch))``; it needs
     ``batch_size``.  epoch_scan (resident only) runs that same per-step
     loop: the JAX contract is the per-step resident batch order, which
-    holds trivially.  The final ``latest`` save always runs.  Returns
-    (state, history).
+    holds trivially.  The final ``latest`` save always runs.  With a
+    process group in ``state`` each rank trains on its rows of every batch
+    and only rank 0 writes checkpoints and plots.  Returns (state,
+    history).
     """
     resident = resident_data is not None
     if epoch_scan and not resident:
         raise ValueError("epoch_scan requires resident_data")
     train_step, eval_step = make_unet_steps(model, class_weights, resident=resident)
-    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    group = state.group
+    ckpt = CheckpointManager(checkpoint_dir, group=group) if checkpoint_dir else None
+    if group_rank(group) != 0:
+        plot_dir = None
     device = next(model.parameters()).device
     history = []
     last_val_batch = None
@@ -250,7 +282,8 @@ def train_unet(
         nb_train, nb_val = n_train // batch_size, n_val // batch_size
 
         def rows(r: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(r.astype(np.int64)).to(device)
+            # this rank's rows of the global batch ``r``
+            return torch.from_numpy(shard_batch(r, group).astype(np.int64)).to(device)
 
         if nb_val:  # the plotted batch: the last full val batch
             idx = rows(np.arange((nb_val - 1) * batch_size, nb_val * batch_size))
@@ -268,9 +301,9 @@ def train_unet(
                 idx = rows(np.arange(i * batch_size, (i + 1) * batch_size))
                 val_mets.append(eval_step(state, v_dev, idx))
         else:
-            for b in prefetch_to_device(train_batches(), device):
+            for b in prefetch_to_device(train_batches(), device, group):
                 train_mets.append(train_step(state, b))
-            for b in prefetch_to_device(val_batches(), device):
+            for b in prefetch_to_device(val_batches(), device, group):
                 val_mets.append(eval_step(state, b))
                 last_val_batch = b
         tm = _host_metrics(train_mets)

@@ -12,6 +12,13 @@ jits it into one program.
 
 The reparameterization noise is drawn by the caller and passed in
 (``eps``): torch's and JAX's generators give different numbers.
+
+Data parallelism across processes (the JAX package's ``data`` mesh axis,
+train/vae.py:599-760): with a process group in the train state, every
+process builds the same global batch and noise and takes its own block of
+rows (parallel/mesh.shard_batch); the BatchNorm moments, the gradients and
+the metrics are the global batch's (models/layers.py, TrainState,
+``mean_over_ranks``), and only rank 0 writes checkpoints and plots.
 """
 
 from __future__ import annotations
@@ -31,21 +38,25 @@ from icsg3d_torch.models.unet import unet_features
 from icsg3d_torch.models.vae import sample_prior
 from icsg3d_torch.ops import losses
 from icsg3d_torch.ops.grid import coordinate_grids
-from icsg3d_torch.parallel.mesh import Mesh
+from icsg3d_torch.parallel.distributed import group_rank, group_size, mean_over_ranks
+from icsg3d_torch.parallel.mesh import Mesh, shard_batch
 from icsg3d_torch.train.checkpoints import CheckpointManager, PlotThinning
 from icsg3d_torch.train.common import mean_metrics as _mean_metrics
 from icsg3d_torch.train.state import TrainState
 
 
 def create_vae_state(cfg: VAEConfig, learning_rate: float, seed: int,
-                     device, spatial_mesh: Optional[Mesh] = None) -> TrainState:
+                     device, spatial_mesh: Optional[Mesh] = None,
+                     group=None) -> TrainState:
     """A seeded fresh VAE (Flax's lecun-normal distribution, not its bits)
     on ``device`` with its Adam optimizer.  ``spatial_mesh`` shards its
     convs in depth (models/vae.py; train/vae.py:34-41 of the JAX package);
-    ``device`` is the lead device, where the parameters live."""
+    ``device`` is the lead device, where the parameters live.  ``group``,
+    a torch.distributed process group, trains it data-parallel across
+    processes (the module note); every rank builds the same weights."""
     gen = torch.Generator().manual_seed(seed)
-    model = ConditionalDFCVAE(cfg, gen, spatial_mesh).to(device)
-    return TrainState.create(model, learning_rate)
+    model = ConditionalDFCVAE(cfg, gen, spatial_mesh, group).to(device)
+    return TrainState.create(model, learning_rate, group)
 
 
 def _assemble_x(batch, grid: Optional[GridSpec]):
@@ -121,7 +132,9 @@ def make_vae_steps(model: ConditionalDFCVAE, unet: Optional[UNet3D] = None,
     metrics`` (0-d tensors on the batch's device; no host sync).
 
     unet=None trains a plain (non-DFC) conditional VAE.  The U-Net is
-    frozen here: eval mode, no parameter gradients.
+    frozen here: eval mode, no parameter gradients.  With a process group
+    in the state, ``batch`` and ``eps`` are this rank's rows and the
+    metrics are the global batch's.
     """
     if unet is not None:
         unet.eval().requires_grad_(False)
@@ -131,14 +144,13 @@ def make_vae_steps(model: ConditionalDFCVAE, unet: Optional[UNet3D] = None,
         total, mets = _vae_losses(state.model, unet, batch, eps, train=True,
                                   remat_perceptual=remat_perceptual)
         total.backward()
-        state.optimizer.step()
-        state.step += 1
-        return {k: v.detach() for k, v in mets.items()}
+        state.apply_gradients()
+        return mean_over_ranks({k: v.detach() for k, v in mets.items()}, state.group)
 
     def eval_step(state: TrainState, batch, eps):
         with torch.no_grad():
             _, mets = _vae_losses(state.model, unet, batch, eps, train=False)
-        return mets
+        return mean_over_ranks(mets, state.group)
 
     return train_step, eval_step
 
@@ -291,22 +303,30 @@ def train_vae(
 
     Batches and noise go to the device of the model's parameters.  The
     noise of step i is the i-th draw of one ``torch.Generator`` seeded
-    with ``seed``.  Returns (state, history).
+    with ``seed``.  With a process group in ``state`` each rank trains on
+    its rows of every batch and of its noise, drawn for the global batch;
+    the plots and checkpoints are rank 0's.  Returns (state, history).
     """
     resident = resident_data is not None
     if epoch_scan and not resident:
         raise ValueError("epoch_scan requires resident_data")
     train_step, eval_step = make_vae_steps(model, unet, remat_perceptual)
-    ckpt = CheckpointManager(checkpoint_dir) if checkpoint_dir else None
+    group = state.group
+    ckpt = CheckpointManager(checkpoint_dir, group=group) if checkpoint_dir else None
+    if group_rank(group) != 0:
+        plot_dir = None
     device = next(model.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     latent = model.cfg.latent_dim
+    world = group_size(group)
     history = []
     last_val_batch = None
     thinning = PlotThinning(plot_min_interval)
 
     def noise(n):
-        return torch.randn((n, latent), generator=gen, device=device)
+        # the global batch's draw (n rows per rank), then this rank's rows
+        return shard_batch(torch.randn((n * world, latent), generator=gen,
+                                       device=device), group)
 
     if resident:
         if not batch_size:
@@ -330,7 +350,8 @@ def train_vae(
         nb_train, nb_val = n_train // batch_size, n_val // batch_size
 
         def gather(data, rows: np.ndarray):
-            idx = torch.from_numpy(rows.astype(np.int64)).to(device)
+            # this rank's rows of the global batch ``rows``
+            idx = torch.from_numpy(shard_batch(rows, group).astype(np.int64)).to(device)
             return {k: v[idx] for k, v in data.items()}
 
         if nb_val:  # the plotted batch: the last full val batch
@@ -344,14 +365,14 @@ def train_vae(
             perm = np.random.default_rng((shuffle_seed, epoch)).permutation(n_train)
             for i in range(nb_train):
                 b = gather(t_dev, perm[i * batch_size:(i + 1) * batch_size])
-                train_mets.append(train_step(state, b, noise(batch_size)))
+                train_mets.append(train_step(state, b, noise(batch_size // world)))
             for i in range(nb_val):
                 b = gather(v_dev, np.arange(i * batch_size, (i + 1) * batch_size))
-                val_mets.append(eval_step(state, b, noise(batch_size)))
+                val_mets.append(eval_step(state, b, noise(batch_size // world)))
         else:
-            for b in prefetch_to_device(train_batches(), device):
+            for b in prefetch_to_device(train_batches(), device, group):
                 train_mets.append(train_step(state, b, noise(len(b["cond"]))))
-            for b in prefetch_to_device(val_batches(), device):
+            for b in prefetch_to_device(val_batches(), device, group):
                 val_mets.append(eval_step(state, b, noise(len(b["cond"]))))
                 last_val_batch = b
         tm = _host_metrics(train_mets)

@@ -170,7 +170,7 @@ def test_forward_full_width_matches_jax(graphs):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
-def _count_by_mask(x, mask, count_from_values=True):
+def _count_by_mask(x, mask, count_from_values=True, group=None):
     """The masked-BN statistics with mask counts, which the reference does
     not use: the tiny case must tell the two apart."""
     x, mask = x.float(), mask.float()

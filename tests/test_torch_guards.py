@@ -213,7 +213,7 @@ def test_batch_iterator_is_a_verbatim_copy():
 
 @pytest.mark.parametrize("name", ["GridSpec", "VAEConfig", "UNetConfig",
                                   "PipelineConfig", "VoxelizerConfig",
-                                  "TrainConfig", "CGCNNConfig"])
+                                  "TrainConfig", "CGCNNConfig", "MeshConfig"])
 def test_config_defaults_match_jax(name):
     jcls, tcls = getattr(jcfg, name), getattr(tcfg, name)
     jf = [(f.name, f.type) for f in dataclasses.fields(jcls)]
@@ -339,3 +339,56 @@ def test_new_clis_refuse_cuda_when_unavailable(app, monkeypatch, tmp_path):
                      "--unet-ckpt", "u"]}[app]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)
+
+
+LAUNCHER_ENV = {"RANK": "1", "WORLD_SIZE": "2", "LOCAL_RANK": "1",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": "1"}
+
+
+@pytest.mark.parametrize("app", ["train_vae", "train_unet", "train_cgcnn", "voxelize"])
+def test_clis_under_a_launcher_refuse_cuda_when_unavailable(app, monkeypatch, tmp_path):
+    """Under torchrun's environment the device check comes before any
+    rendezvous: no process group is joined."""
+    import importlib
+
+    for var, value in LAUNCHER_ENV.items():
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    mod = importlib.import_module(f"icsg3d_torch.apps.{app}")
+    argv = {"train_vae": ["--data", str(tmp_path)],
+            "train_unet": ["--data", str(tmp_path)],
+            "train_cgcnn": ["--synthetic", "2", "--ckpt", str(tmp_path / "c")],
+            "voxelize": ["--synthetic", "2", "--out", str(tmp_path / "x")]}[app]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert not torch.distributed.is_initialized()
+
+
+def test_cuda_under_a_launcher_is_the_local_rank_card(monkeypatch):
+    """``--device cuda`` is cuda:$LOCAL_RANK under a launcher, and raises
+    where that card is not visible instead of stacking ranks on one."""
+    for var, value in LAUNCHER_ENV.items():
+        monkeypatch.setenv(var, value)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    assert tcommon.resolve_device("cuda") == torch.device("cuda", 1)
+    assert tcommon.resolve_devices("cuda") == (torch.device("cuda", 1),
+                                               [torch.device("cuda", 1)])
+    assert tcommon.resolve_device("cuda:0") == torch.device("cuda", 0)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="LOCAL_RANK"):
+        tcommon.resolve_device("cuda")
+
+
+def test_train_cgcnn_batch_must_split_over_the_data_axis(monkeypatch, capsys):
+    """JAX's message (apps/train_cgcnn.py:136-141), counting every
+    process's device on the data axis."""
+    from icsg3d_torch.apps import train_cgcnn
+    from icsg3d_torch.parallel import distributed
+
+    monkeypatch.setattr(distributed, "process_count", lambda: 2)
+    with pytest.raises(SystemExit):
+        train_cgcnn.main(["--synthetic", "4", "--batch-size", "3", "--epochs", "0",
+                          "--device", "cpu", "--ckpt", "unused"])
+    assert ("--batch-size 3 must be divisible by the data mesh axis (2 devices)"
+            in capsys.readouterr().err)
