@@ -9,8 +9,9 @@ Phases (any failure exits nonzero, before the result line):
 
 1. Device: the card's name and ``nvidia-smi`` name and power limit; CUDA
    must be available.
-2. Build: compile icsg3d_torch/csrc/conv3d.cu, conv3d_dw.cu and
-   voxelize.cu for sm_90a (one nvcc per source, started together; ctypes).
+2. Build: compile icsg3d_torch/csrc/conv3d.cu, conv3d_dw.cu, voxelize.cu
+   and extract.cu for sm_90a (one nvcc per source, started together;
+   ctypes).
 3. Kernel vs plain, at batch 20, each against its plain version on the
    same operands (TF32 off), with the kernel's, the plain version's and
    one PyTorch library call's CUDA-event medians of 10 runs, and the
@@ -49,12 +50,31 @@ Phases (any failure exits nonzero, before the result line):
 4. Generation: ``icsg3d_torch.apps.generate.main`` on a synthetic 32^3
    GridDataset with seeded full-width weights (.npz), 40 samples at batch
    20, once with ``--fused`` and once on the host watershed path.  Checks
-   40 records, finite lattices, and that the conv kernel was launched
-   exactly once per 3x3x3 conv of the path.
+   40 records, finite lattices, that the conv kernel was launched
+   exactly once per 3x3x3 conv of the path, and the extraction kernels
+   2 x batches (E1) and batches (E2) times with ``--fused``, never on the
+   host path.  ``[breakdown]``: one fused batch of 20 by stage (decode,
+   U-Net, extraction) and the extraction by its stages (E1 foreground,
+   erosion, E1 cores, seeds, E2, region ranking and votes), CUDA-event
+   medians; one ``extract_atoms`` at batch 20 under
+   ``torch.cuda.set_sync_debug_mode("error")``, queued behind a long
+   sleep kernel that must still run when it returns (no host sync).
+   ``[extract-kernels]``: E1 (``extract_cc``) and E2 (``extract_bfs``)
+   against their plain versions on the same operands: the breakdown's
+   decoded masks (E1 on the foreground and the erosion cores, E2 on the
+   split's seeds), a batch of 128 (bench.py's fused generation batch,
+   decoded in chunks of 20), 4 of the masks at 64^3, and the adversarial
+   grids of tests/test_torch_extract_plan.py at 32^3 (empty, full, a
+   one-voxel-wide snake, a multi-valued grid, two seeds equidistant from
+   a box's middle plane, a non-cubic blob grid).  Labels bitwise equal,
+   E2's largest per-sample round count the plain version's; kernel and
+   plain CUDA-event medians, the byte bound (E1 8 bytes per voxel, E2 14
+   with seed labels, 10 without, over 3.35 TB/s), both round counts.
 5. GPU vs CPU: the fused step for one batch of 2 on the card and on the
    CPU (plain versions), same weights and latents.  Lattices agree to
    1e-2 relative; extracted atoms agree wherever the masks agree, and the
-   card's extraction of the CPU's own masks equals the CPU's exactly.
+   card's extraction of the CPU's own masks (E1 twice, E2 once) equals
+   the CPU's plain versions' exactly.
 6. Training: ``icsg3d_torch.apps.train_vae.main`` at production width
    (32^3 x 4, filters 16-128, latent 256, the seeded 95-class U-Net for the
    DFC loss, batch 20) on 100 synthetic parents with ``--nrot 0`` (80
@@ -215,9 +235,12 @@ Phases (any failure exits nonzero, before the result line):
 Every torchrun launch has a timeout (its process group is killed on the
 way out) and a failed rank fails the smoke test.  It imports nothing of
 JAX.  The last two stdout lines are the kernels
-JSON object and then ``{"ok": true, "device": {...}}``; the kernels'
-launches count generation with ``--cgcnn-ckpt``, evaluate, interpolate,
-view, the plots phase's trainers and the data-parallel ranks too.
+JSON object (ten entries; the extraction kernels' launches are those of
+every ``--fused`` generation: phase 4's, the trained checkpoints' of
+phases 6 and 11 and ``--cgcnn-ckpt``'s) and then ``{"ok": true,
+"device": {...}}``; the kernels' launches count generation with
+``--cgcnn-ckpt``, evaluate, interpolate, view, the plots phase's
+trainers and the data-parallel ranks too.
 """
 
 from __future__ import annotations
@@ -372,7 +395,16 @@ KERNEL_ENTRIES = [
      "icsg3d_tpu/ops/lowc_conv.py:615", lambda r: r["pass"] == "dx_valid"),
     ("conv3d_dw[valid]", "icsg3d_torch/csrc/conv3d_dw.cu",
      "icsg3d_tpu/ops/lowc_conv.py:624", lambda r: r["pass"] == "dw_valid"),
+    # the extraction's two lax.while_loops (no Pallas counterpart)
+    ("extract_cc", "icsg3d_torch/csrc/extract.cu",
+     "icsg3d_tpu/ops/extract.py:104", lambda r: r["pass"] == "cc"),
+    ("extract_bfs", "icsg3d_torch/csrc/extract.cu",
+     "icsg3d_tpu/ops/extract.py:221", lambda r: r["pass"] == "bfs"),
 ]
+
+# the extraction kernels' phase: bench.py's fused generation batch; the
+# no-sync probe's sleep ahead of extract_atoms (~0.5 s at H100 clocks)
+EXTRACT_BATCH, SYNC_PROBE_CYCLES = 128, 1_000_000_000
 
 # 3x3x3 convs per generation run: the encoder once (4 blocks + Conv_4),
 # then per batch the decoder (4 blocks + output head) and the U-Net (14).
@@ -435,10 +467,11 @@ def phase_build():
 
     from icsg3d_torch.kernels import conv3d as k
     from icsg3d_torch.kernels import conv3d_dw as kdw
+    from icsg3d_torch.kernels import extract as kext
     from icsg3d_torch.kernels import voxelize as kv
 
     t0 = time.perf_counter()
-    mods = (k, kdw, kv)
+    mods = (k, kdw, kv, kext)
     with ThreadPoolExecutor(len(mods)) as pool:  # one nvcc per source, at once
         libs = list(pool.map(lambda m: m.load(), mods))
     print(f"[build] {', '.join(os.path.basename(lib._name) for lib in libs)} in "
@@ -746,6 +779,7 @@ def phase_main_path(tmp: str, card: str):
 
     from icsg3d_torch.apps import generate
     from icsg3d_torch.kernels import conv3d as k
+    from icsg3d_torch.kernels import extract as kext
     from icsg3d_torch.weights import save_npz, to_flax_variables
 
     write_dataset(os.path.join(tmp, "data"))
@@ -765,12 +799,20 @@ def phase_main_path(tmp: str, card: str):
                 "--device", DEVICE, "--output", out] + (["--fused"] if fused else [])
         sync()
         k.reset_launches()
+        kext.reset_launches()
         t0 = time.perf_counter()
         generate.main(argv)
         sync()
         secs = time.perf_counter() - t0
         launches = k.launches
         by_epi = dict(k.launches_by_epilogue)
+        ext = {"cc": kext.launches_cc, "bfs": kext.launches_bfs}
+        # the fused path extracts on the card: E1 on the foreground and on
+        # the erosion cores, E2 once, per batch; the host path never
+        want_ext = ({"cc": 2 * n_batches, "bfs": n_batches} if fused
+                    else {"cc": 0, "bfs": 0})
+        check(ext == want_ext, f"{label}: extraction kernels launched {ext}, "
+              f"want {want_ext}")
         with open(os.path.join(out, "results.json")) as f:
             rows = json.load(f)
         check(len(rows) == NSAMPLES, f"{label}: {len(rows)} records, want {NSAMPLES}")
@@ -784,20 +826,25 @@ def phase_main_path(tmp: str, card: str):
         n_err = sum("error" in r for r in rows)
         print(f"[main:{label}] {NSAMPLES} samples in {secs:.3f} s = "
               f"{NSAMPLES / secs:.2f} samples/s ({card}); conv launches "
-              f"{launches} = {want} expected {by_epi}; atoms {n_atoms}, "
+              f"{launches} = {want} expected {by_epi}; extraction launches "
+              f"E1 {ext['cc']} E2 {ext['bfs']} = expected; atoms {n_atoms}, "
               f"valid {n_valid}, per-sample errors {n_err}")
-        results[label] = dict(seconds=secs, launches=launches, by_epilogue=by_epi)
+        results[label] = dict(seconds=secs, launches=launches, by_epilogue=by_epi,
+                              **ext)
     return vae, unet, results
 
 
 def phase_breakdown(vae, unet, card: str):
-    """Device time of one fused batch of 20, by stage (CUDA events)."""
+    """Device time of one fused batch of 20 by stage (CUDA events), the
+    extraction by its own stages; then one extraction under sync-debug
+    mode "error", queued behind a long kernel, which must return to the
+    host before that kernel ends.  Returns the batch's (species, binary)."""
     import numpy as np
     import torch
 
     from icsg3d_torch.apps.generate import _decode_segment
     from icsg3d_torch.config import GridSpec, PipelineConfig
-    from icsg3d_torch.ops.extract import extract_atoms
+    from icsg3d_torch.ops import extract as ex
 
     pipe = PipelineConfig(grid=GridSpec(d=D))
     rng = np.random.default_rng(SEED + 2)
@@ -811,11 +858,161 @@ def phase_breakdown(vae, unet, card: str):
         _, _, _, labels, binary = _decode_segment(vae, unet, pipe, z, cond)
         spec = torch.where(binary > 0, labels, 0)
         ext_ms = cuda_median_ms(
-            lambda: extract_atoms(spec, binary, max_atoms=64, vote_classes=95),
-            runs=3, warmup=1)
+            lambda: ex.extract_atoms(spec, binary, max_atoms=64, vote_classes=95))
+        # the stages of extract_atoms, each on what the one before gave
+        fg = binary > 0
+        spec_i = torch.where(fg, spec.to(torch.int32), 0)
+        lab = ex.connected_components_same_value(fg.to(torch.int32))
+        er = ex.erode6(fg)
+        cores = ex.connected_components_same_value(er.to(torch.int32))
+        seed, seed_labels = ex.erosion_split_seeds(lab, cores, fg)
+        regions = ex.nearest_seed_labels(seed, lab, fg, seed_labels)
+        stages = {
+            "E1 foreground": lambda: ex.connected_components_same_value(
+                fg.to(torch.int32)),
+            "erosion": lambda: ex.erode6(fg),
+            "E1 cores": lambda: ex.connected_components_same_value(er.to(torch.int32)),
+            "seeds": lambda: ex.erosion_split_seeds(lab, cores, fg),
+            "E2": lambda: ex.nearest_seed_labels(seed, lab, fg, seed_labels),
+            "region ranking and votes": lambda: ex.atoms_from_regions(
+                regions, spec_i, fg, 64, 4, 95),
+        }
+        stage_ms = {name: cuda_median_ms(fn) for name, fn in stages.items()}
+        # no host synchronisation: sync-debug mode raises on one, and the
+        # host must get past the extraction while the sleep still runs
+        want = ex.extract_atoms(spec, binary, max_atoms=64, vote_classes=95)
+        sync()
+        done = torch.cuda.Event()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            torch.cuda._sleep(SYNC_PROBE_CYCLES)
+            got = ex.extract_atoms(spec, binary, max_atoms=64, vote_classes=95)
+            done.record()
+            ahead = not done.query()
+        except RuntimeError as err:
+            fail(f"extract_atoms synchronised with the host: {err}")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        sync()
+        check(ahead, "extract_atoms returned only after the kernel queued before it")
+        for a, b in zip(got, want):
+            check(torch.equal(a, b), "extract_atoms under sync-debug mode differs")
+    split = ", ".join(f"{name} {ms:.3f}" for name, ms in stage_ms.items())
     print(f"[breakdown] fused batch of {BATCH} ({card}): decode {dec_ms:.3f} ms, "
           f"U-Net {unet_ms:.3f} ms, extraction {ext_ms:.3f} ms "
-          f"(foreground {float(binary.float().mean()):.3f})")
+          f"(foreground {float(binary.float().mean()):.3f}); extraction by stage "
+          f"(ms): {split}")
+    print(f"[breakdown] extract_atoms at batch {BATCH} under sync-debug mode "
+          f"\"error\": no host synchronisation; it returned after {host_ms:.3f} ms "
+          f"of host time, before the {SYNC_PROBE_CYCLES:.0e}-cycle kernel queued "
+          f"ahead of it ended")
+    return spec, binary
+
+
+def phase_extract_kernels(vae, unet, card: str, spec20, binary20):
+    """E1 and E2 against their plain versions on the card, on the same
+    operands: outputs bitwise equal, E2's largest per-sample round count
+    the plain version's.  Operands: the breakdown's decoded, segmented
+    batch of 20 (E1 on the foreground and the erosion cores, E2 on the
+    split's seeds), a batch of 128 decoded in chunks of 20, 4 of the
+    batch's masks at 64^3 (each voxel doubled along each axis), and the
+    adversarial grids of tests/test_torch_extract_plan.py at D^3 (empty,
+    full from two corners, the one-voxel-wide snake from one end, a
+    multi-valued grid, two seeds equidistant from a box's middle plane)
+    and its non-cubic blob grid; their errors join the kernels line,
+    their times do not.  Each row: CUDA-event medians of kernel and
+    plain, the bound (the bytes read or written once over 3.35 TB/s: 8
+    per voxel for E1,
+    14 for E2 with seed labels, 10 without), its share, the rounds of
+    both; library none (no one PyTorch call computes either function)."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps.generate import _decode_segment
+    from icsg3d_torch.config import GridSpec, PipelineConfig
+    from icsg3d_torch.kernels import extract as kext
+    from icsg3d_torch.ops import extract as ex
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from test_torch_extract_plan import adversarial, bfs_operands
+
+    pipe = PipelineConfig(grid=GridSpec(d=D))
+    rng = np.random.default_rng(SEED + 5)
+    chunks = []
+    with torch.inference_mode():
+        for _ in range(-(-EXTRACT_BATCH // BATCH)):
+            z = torch.from_numpy(rng.standard_normal((BATCH, 256)).astype(np.float32))
+            cond = torch.zeros(BATCH, 10)
+            cond[:, 3] = 1.0
+            chunks.append(_decode_segment(vae, unet, pipe, z.cuda(), cond.cuda())[4])
+    fg128 = torch.cat(chunks)[:EXTRACT_BATCH] > 0
+    fg64 = binary20[:4] > 0
+    for dim in (1, 2, 3):
+        fg64 = fg64.repeat_interleave(2, dim=dim)
+    sets = {f"batch {BATCH}": binary20 > 0, f"batch {EXTRACT_BATCH}": fg128,
+            f"4 x {2 * D}^3": fg64.contiguous()}
+
+    rows, checked = [], []
+
+    def row(kind, what, vox, per_voxel, fn, plain, adversarial):
+        """Time and compare one kernel call with its plain version."""
+        slow = adversarial and what.startswith("snake")
+        got, rounds = fn()
+        want, want_rounds = plain()
+        sync()
+        check(torch.equal(got, want), f"{kind} {what}: the kernel's labels differ "
+              f"from the plain version's in {int((got != want).sum())} voxels")
+        r_max, r_min = int(rounds.max()), int(rounds.min())
+        check(r_min >= 1, f"{kind} {what}: a sample hit the kernel's round cap")
+        if kind == "E2":
+            check(r_max == want_rounds, f"E2 {what}: the kernel's rounds {r_max}, "
+                  f"the plain version's {want_rounds}")
+        ms = cuda_median_ms(fn)
+        plain_ms = cuda_median_ms(plain, runs=1 if slow else 3, warmup=0 if slow else 1)
+        bms = 1e3 * vox * per_voxel / MEM_BYTES_PER_S
+        path = kext.state_path("cc" if kind == "E1" else "bfs", vox // len(rounds))
+        print(f"[extract-kernels] {kind} {what} ({card}): {path} state, kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms bytes "
+              f"(share {bms / ms:.4f}); rounds kernel {r_max} (least sample "
+              f"{r_min}), plain {want_rounds}; bitwise equal; library none")
+        (checked if adversarial else rows).append({
+            "pass": "cc" if kind == "E1" else "bfs", "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": "bytes", "library_ms": None, "abs_err": 0.0})
+
+    def e1(what, sp, adversarial=False):
+        # int32 in, int32 out
+        row("E1", what, sp.numel(), 8, lambda: kext.connected_components_cuda(sp),
+            lambda: ex.connected_components_reference(sp, return_rounds=True),
+            adversarial)
+
+    def e2(what, seeds, cc, fg, seed_labels, adversarial=False):
+        # seeds and fg a byte each, cc (and seed labels) int32 in, int32 out
+        row("E2", what, cc.numel(), 10 if seed_labels is None else 14,
+            lambda: kext.nearest_seed_labels_cuda(seeds, cc, fg, seed_labels),
+            lambda: ex.nearest_seed_labels_reference(seeds, cc, fg, seed_labels,
+                                                     return_rounds=True),
+            adversarial)
+
+    with torch.inference_mode():
+        for name, fg in sets.items():
+            shape = "x".join(str(s) for s in fg.shape)
+            fgi = fg.to(torch.int32)
+            core_i = ex.erode6(fg).to(torch.int32)
+            e1(f"foreground {name} ({shape})", fgi)
+            e1(f"erosion cores {name}", core_i)
+            lab = ex.connected_components_reference(fgi)
+            cores = ex.connected_components_reference(core_i)
+            seed, seed_labels = ex.erosion_split_seeds(lab, cores, fg)
+            e2(f"split seeds {name}", seed, lab, fg, seed_labels)
+        for name, (grid, seeds) in adversarial(D).items():
+            what = f"{name} (1x{'x'.join(str(s) for s in grid.shape)})"
+            grid = torch.from_numpy(grid[None]).cuda()
+            seeds = None if seeds is None else torch.from_numpy(seeds[None]).cuda()
+            e1(what, grid, True)
+            e2(what, *bfs_operands(grid, seeds), True)
+    return rows, checked
 
 
 def phase_cpu_parity(vae, unet):
@@ -855,10 +1052,16 @@ def phase_cpu_parity(vae, unet):
             check(np.array_equal(g["valid"][i], c["valid"][i])
                   and np.allclose(g["mu"][i], c["mu"][i], atol=1e-5),
                   f"sample {i}: masks agree, extracted atoms differ")
-    # the extraction itself on identical masks: the CPU's grids on the card
+    # the extraction itself on identical masks: the CPU's grids through the
+    # card's kernels (E1 twice, E2 once) against the CPU's plain versions
+    from icsg3d_torch.kernels import extract as kext
+
+    before = (kext.launches_cc, kext.launches_bfs)
     with torch.inference_mode():
         same = extract_atoms(*(t.to(DEVICE) for t in grids["cpu"]),
                              max_atoms=64, vote_classes=95)
+    check((kext.launches_cc - before[0], kext.launches_bfs - before[1]) == (2, 1),
+          "the card's extraction of the CPU's masks did not run E1 twice and E2 once")
     for name, a, b in zip(("atoms", "mu", "valid"), same,
                           (c["atoms"], c["mu"], c["valid"])):
         ok = (np.allclose(a.cpu().numpy(), b, atol=1e-5) if name == "mu"
@@ -868,7 +1071,8 @@ def phase_cpu_parity(vae, unet):
     print(f"[gpu-vs-cpu] batch 2 in {time.perf_counter() - t0:.1f} s: lattice max "
           f"rel err {lat_rel:.2e}; masks agree on {mask_agree}/2 samples (voxels "
           f"differing {mismatch} of {D ** 3}); extraction of identical masks: "
-          f"{int(c['valid'].sum())} atoms, equal on {DEVICE} and cpu; valid atoms "
+          f"{int(c['valid'].sum())} atoms, equal on {DEVICE} (E1, E2) and cpu "
+          f"(plain versions); valid atoms "
           f"from own masks gpu {int(g['valid'].sum())} cpu {int(c['valid'].sum())}")
 
 
@@ -900,16 +1104,19 @@ def write_train_dataset(path: str):
 def reset_counts() -> None:
     from icsg3d_torch.kernels import conv3d as k
     from icsg3d_torch.kernels import conv3d_dw as kdw
+    from icsg3d_torch.kernels import extract as kext
     from icsg3d_torch.kernels import voxelize as kv
 
     k.reset_launches()
     kdw.reset_launches()
     kv.reset_launches()
+    kext.reset_launches()
 
 
 def read_counts() -> dict:
     from icsg3d_torch.kernels import conv3d as k
     from icsg3d_torch.kernels import conv3d_dw as kdw
+    from icsg3d_torch.kernels import extract as kext
     from icsg3d_torch.kernels import voxelize as kv
 
     by, byv = dict(k.launches_by_epilogue), dict(k.launches_valid_by_epilogue)
@@ -917,12 +1124,14 @@ def read_counts() -> dict:
             "folded": sum(by[e] for e in FOLDED), "dx": k.launches_dx,
             "dw": kdw.launches, "vox": kv.launches,
             "fwd_valid": k.launches_valid, "valid_folded": sum(byv[e] for e in FOLDED),
-            "dx_valid": k.launches_dx_valid, "dw_valid": kdw.launches_valid}
+            "dx_valid": k.launches_dx_valid, "dw_valid": kdw.launches_valid,
+            "cc": kext.launches_cc, "bfs": kext.launches_bfs}
 
 
 # read_counts() of a run that launched nothing
 NO_LAUNCHES = {key: 0 for key in ("fwd", "bias", "folded", "dx", "dw", "vox",
-                                  "fwd_valid", "valid_folded", "dx_valid", "dw_valid")}
+                                  "fwd_valid", "valid_folded", "dx_valid", "dw_valid",
+                                  "cc", "bfs")}
 
 
 def phase_train(tmp: str, card: str):
@@ -985,10 +1194,14 @@ def phase_train(tmp: str, card: str):
     want_gen = ENCODER_CONVS + DECODER_CONVS + UNET_CONVS
     check(gen_counts["fwd"] == want_gen,
           f"generate from the trained checkpoint: {gen_counts['fwd']} launches")
+    check((gen_counts["cc"], gen_counts["bfs"]) == (2, 1),
+          f"generate from the trained checkpoint: extraction launches E1 "
+          f"{gen_counts['cc']} E2 {gen_counts['bfs']}, want 2 and 1")
     print(f"[train] generate --fused from {os.path.basename(ckpt)}/best.npz: "
           f"{len(rows)} records, {sum(bool(r.get('valid')) for r in rows)} valid; "
-          f"conv launches {gen_counts['fwd']}")
-    return counts
+          f"conv launches {gen_counts['fwd']}, E1 2, E2 1")
+    # the training's launches and the generation's extraction
+    return {**counts, "cc": gen_counts["cc"], "bfs": gen_counts["bfs"]}
 
 
 def phase_train_step(tmp: str, unet, card: str):
@@ -1424,13 +1637,16 @@ def phase_train_unet(tmp: str, data: str, card: str):
     with open(os.path.join(out, "results.json")) as f:
         rows = json.load(f)
     want_gen = ENCODER_CONVS + DECODER_CONVS + UNET_CONVS
-    check(len(rows) == BATCH and gen_counts["fwd"] == want_gen,
+    check(len(rows) == BATCH and gen_counts["fwd"] == want_gen
+          and (gen_counts["cc"], gen_counts["bfs"]) == (2, 1),
           f"generate from the U-Net checkpoint: {len(rows)} records, "
-          f"{gen_counts['fwd']} launches")
+          f"{gen_counts['fwd']} launches, E1 {gen_counts['cc']}, E2 {gen_counts['bfs']}")
     print(f"[train-unet] generate --fused --unet-ckpt {os.path.basename(ckpt)}: "
           f"{len(rows)} records, {sum(bool(r.get('valid')) for r in rows)} valid; "
-          f"conv launches {gen_counts['fwd']}")
-    return counts, np.asarray(cw, np.float32)
+          f"conv launches {gen_counts['fwd']}, E1 2, E2 1")
+    # the training's launches and the generation's extraction
+    return ({**counts, "cc": gen_counts["cc"], "bfs": gen_counts["bfs"]},
+            np.asarray(cw, np.float32))
 
 
 def phase_unet_train_step(data: str, class_weights, card: str):
@@ -2054,6 +2270,8 @@ def phase_generate_cgcnn(tmp: str, ckpts: dict, card: str):
     want = ENCODER_CONVS + DECODER_CONVS + UNET_CONVS
     check(counts["fwd"] == want, f"generate --cgcnn-ckpt: {counts['fwd']} conv "
           f"launches, want {want}")
+    check((counts["cc"], counts["bfs"]) == (2, 1), f"generate --cgcnn-ckpt: "
+          f"extraction launches E1 {counts['cc']} E2 {counts['bfs']}, want 2 and 1")
     with open(os.path.join(out, "results.json")) as f:
         rows = json.load(f)
     check(len(rows) == BATCH, f"generate --cgcnn-ckpt: {len(rows)} records")
@@ -3234,7 +3452,11 @@ def main() -> None:
         ("dw", UNET_TRAIN, UNET_BATCH)], rows)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         vae, unet, runs = phase_main_path(tmp, card)
-        phase_breakdown(vae, unet, card)
+        spec20, binary20 = phase_breakdown(vae, unet, card)
+        ext_rows, ext_checked = phase_extract_kernels(vae, unet, card, spec20, binary20)
+        rows += ext_rows
+        checked += ext_checked
+        del spec20, binary20
         phase_cpu_parity(vae, unet)
         with plots_off():
             train_counts = phase_train(tmp, card)
@@ -3270,14 +3492,16 @@ def main() -> None:
     # (pair and sweep), view and the plots phase's trainers
     gen_counts = [{"bias": r["by_epilogue"]["bias"],
                    "folded": sum(r["by_epilogue"][e] for e in FOLDED),
-                   "dx": 0, "dw": 0, "vox": 0} for r in runs.values()]
+                   "dx": 0, "dw": 0, "vox": 0, "cc": r["cc"], "bfs": r["bfs"]}
+                  for r in runs.values()]
     paths = gen_counts + [train_counts, vox_counts, unet_counts, spatial_counts,
                           *dp_counts, gen_cgcnn_counts, eval_counts, *interp_counts, view_counts,
                           plots_counts]
     count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
                  "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox",
                  "conv3d_same[valid]": "fwd_valid",
-                 "conv3d_same[dx_valid]": "dx_valid", "conv3d_dw[valid]": "dw_valid"}
+                 "conv3d_same[dx_valid]": "dx_valid", "conv3d_dw[valid]": "dw_valid",
+                 "extract_cc": "cc", "extract_bfs": "bfs"}
     kernels = []
     for entry, source, replaces, covers in KERNEL_ENTRIES:
         mine = [r for r in rows if covers(r)]

@@ -5,7 +5,7 @@ Counterpart of the production path of icsg3d_tpu/ops/extract.py (the
 runs): a device mirror of the reference's host pipeline.
 
 1. Connected components of the BINARY occupancy mask by min-label
-   propagation over the 6 face neighbors (rolls + wheres).
+   propagation over the 6 face neighbors.
 2. ``erosion_levels`` rounds of marker-erosion splitting: a region whose
    eroded mask holds >= 2 cores of >= ``wmin`` voxels is BFS-relabeled to
    its nearest core (watershed.py:98-111).
@@ -13,10 +13,16 @@ runs): a device mirror of the reference's host pipeline.
    become atom slots; per-region majority-vote species and centroids by
    membership-matrix matmuls.
 
-Each ``lax.while_loop`` of the JAX version is a Python loop here, with one
-host sync per round to test for convergence.  A batch iterates until every
-sample has converged; a converged sample is a fixed point of the round, so
-the extra rounds leave it unchanged and batching does not alter results.
+Each ``lax.while_loop`` of the JAX version is, on a CUDA tensor, one
+launch of a kernel that loops on the card until each sample converges
+(``kernels/extract.py``: E1 the connected components, E2 the BFS); the
+rest are torch ops that never read the device from the host, so
+``extract_atoms`` on the card makes no host synchronisation.  On a CPU
+tensor the loops are the plain versions (``*_reference``): a Python loop
+of rolls and wheres, with one host read per round to test for
+convergence.  A batch iterates until every sample has converged; a
+converged sample is a fixed point of the round, so the extra rounds leave
+it unchanged and batching does not alter results.
 Shapes below: ``(N, d0, d1, d2)`` grids, int32 labels where each region's
 label is the smallest flat voxel index it holds and background is n_vox.
 """
@@ -26,6 +32,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from icsg3d_torch.kernels import extract as kext
 
 
 def _flat_index(shape, device) -> torch.Tensor:
@@ -59,20 +67,39 @@ def _neighbor_min_labels(labels, species, big):
     return out
 
 
-def connected_components_same_value(species: torch.Tensor) -> torch.Tensor:
-    """CC labels of nonzero-valued int grids (N, d0, d1, d2); background
-    (0) -> n_vox.  Each component's label is its smallest flat index."""
+def connected_components_reference(species: torch.Tensor, return_rounds: bool = False):
+    """The plain version of E1: CC labels of nonzero-valued int grids (N,
+    d0, d1, d2); background (0) -> n_vox.  Each component's label is its
+    smallest flat index.  With ``return_rounds`` also the number of rounds
+    the loop ran (the last one changing nothing)."""
     shape = species.shape[1:]
     n_vox = shape[0] * shape[1] * shape[2]
     big = torch.tensor(n_vox, dtype=torch.int32, device=species.device)
     species = species.to(torch.int32)
     fg = species > 0
     labels = torch.where(fg, _flat_index(shape, species.device), big)
+    rounds = 0
     while True:
+        rounds += 1
         new = torch.where(fg, _neighbor_min_labels(labels, species, big), big)
         if not bool((new != labels).any()):
-            return new
+            return (new, rounds) if return_rounds else new
         labels = new
+
+
+def _device_kind(t: torch.Tensor, fn: str) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{fn} runs on cuda or cpu tensors, got {t.device}")
+    return t.device.type
+
+
+def connected_components_same_value(species: torch.Tensor) -> torch.Tensor:
+    """CC labels of nonzero-valued int grids (N, d0, d1, d2); background
+    (0) -> n_vox.  Each component's label is its smallest flat index.  A
+    CUDA grid goes to the kernel E1, a CPU grid to the plain version."""
+    if _device_kind(species, "connected_components_same_value") == "cpu":
+        return connected_components_reference(species)
+    return kext.connected_components_cuda(species.to(torch.int32).contiguous())[0]
 
 
 def erode6(fg: torch.Tensor) -> torch.Tensor:
@@ -86,13 +113,17 @@ def erode6(fg: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def nearest_seed_labels(seeds, cc_labels, fg, seed_labels=None):
-    """Relabel each foreground voxel to its nearest seed's label.
+def nearest_seed_labels_reference(seeds, cc_labels, fg, seed_labels=None,
+                                  return_rounds: bool = False):
+    """The plain version of E2: relabel each foreground voxel to its
+    nearest seed's label.
 
     Multi-source BFS (6-connectivity) restricted to each voxel's own
     ``cc_labels`` region; equidistant ties resolve by the fixed neighbor
     visit order, as in the JAX version.  Background and unreached voxels
-    get n_vox.  ``seed_labels`` defaults to each seed's flat index.
+    get n_vox.  ``seed_labels`` defaults to each seed's flat index.  With
+    ``return_rounds`` also the number of rounds the loop ran (the last one
+    changing nothing).
     """
     shape = seeds.shape[1:]
     n_vox = shape[0] * shape[1] * shape[2]
@@ -102,7 +133,9 @@ def nearest_seed_labels(seeds, cc_labels, fg, seed_labels=None):
         seed_labels = _flat_index(shape, dev).expand(seeds.shape)
     lab = torch.where(seeds & fg, seed_labels.to(torch.int32), big)
     dist = torch.where(seeds & fg, torch.zeros_like(big), big)
+    rounds = 0
     while True:
+        rounds += 1
         new_lab, new_dist = lab, dist
         for axis in range(3):
             for shift in (1, -1):
@@ -118,7 +151,25 @@ def nearest_seed_labels(seeds, cc_labels, fg, seed_labels=None):
         changed = bool((new_dist != dist).any())
         lab, dist = new_lab, new_dist
         if not changed:
-            return lab
+            return (lab, rounds) if return_rounds else lab
+
+
+def nearest_seed_labels(seeds, cc_labels, fg, seed_labels=None):
+    """Relabel each foreground voxel to its nearest seed's label.
+
+    Multi-source BFS (6-connectivity) restricted to each voxel's own
+    ``cc_labels`` region; equidistant ties resolve by the fixed neighbor
+    visit order, as in the JAX version.  Background and unreached voxels
+    get n_vox.  ``seed_labels`` defaults to each seed's flat index.  CUDA
+    tensors go to the kernel E2, CPU tensors to the plain version.
+    """
+    if _device_kind(cc_labels, "nearest_seed_labels") == "cpu":
+        return nearest_seed_labels_reference(seeds, cc_labels, fg, seed_labels)
+    if seed_labels is not None:
+        seed_labels = seed_labels.to(torch.int32).contiguous()
+    return kext.nearest_seed_labels_cuda(
+        seeds.to(torch.bool).contiguous(), cc_labels.to(torch.int32).contiguous(),
+        fg.to(torch.bool).contiguous(), seed_labels)[0]
 
 
 def top_regions_by_size(
@@ -150,8 +201,7 @@ def top_regions_by_size(
     )
     run_len = (nxt - iota).to(torch.float32)
     score = torch.where(
-        is_start & (s < n_vox) & (run_len >= min_size), run_len,
-        torch.tensor(float("-inf"), device=dev),
+        is_start & (s < n_vox) & (run_len >= min_size), run_len, float("-inf"),
     )
     k_eff = min(k, n_vox)
     top_sizes, top_pos = torch.sort(score, dim=-1, descending=True, stable=True)
@@ -169,15 +219,16 @@ def top_regions_by_size(
     return top_labels, top_sizes, valid
 
 
-def split_by_erosion_cores(labels, eroded, fg, wmin: int = 8, max_cores: int = 128):
-    """One level of the reference's marker split: regions of ``labels``
-    whose eroded mask holds >= 2 cores of >= wmin voxels are BFS-relabeled
-    to their nearest core; other regions are untouched.  Only the
-    ``max_cores`` largest cores can act as markers."""
+def erosion_split_seeds(labels, cores, fg, wmin: int = 8, max_cores: int = 128):
+    """The seeds of one level of the marker split, from the regions
+    ``labels`` and the CC labels ``cores`` of their eroded mask: in a
+    region holding >= 2 cores of >= wmin voxels (among the ``max_cores``
+    largest), the valid cores' voxels are seeds labelled by their core;
+    every voxel of another region is a seed labelled by its region.
+    Returns (seeds bool, seed_labels int32), shaped like ``labels``."""
     shape = labels.shape[1:]
     n = labels.shape[0]
     n_vox = shape[0] * shape[1] * shape[2]
-    cores = connected_components_same_value(eroded.to(torch.int32))
     cores_f = cores.reshape(n, -1)
     lab_f = labels.reshape(n, -1)
     fg_f = fg.reshape(n, -1)
@@ -196,42 +247,33 @@ def split_by_erosion_cores(labels, eroded, fg, wmin: int = 8, max_cores: int = 1
     # every voxel of a non-splitting region is its own seed (region label)
     seed = fg_f & torch.where(region_splits, valid_core_v, True)
     seed_labels = torch.where(region_splits, cores_f, lab_f)
-    return nearest_seed_labels(
-        seed.reshape(labels.shape), labels, fg, seed_labels.reshape(labels.shape)
-    )
+    return seed.reshape(labels.shape), seed_labels.reshape(labels.shape)
 
 
-def extract_atoms(
-    species: torch.Tensor,   # (N, d, d, d) int labels (0 = background)
-    mask: torch.Tensor,      # (N, d, d, d) binary occupancy
-    max_atoms: int = 64,
-    min_voxels: int = 4,
-    erosion_levels: int = 1,
-    wmin: int = 8,
-    vote_classes: int = 95,
-):
-    """Fixed-shape atom extraction over a batch of grids: the JAX
-    ``extract_atoms(density, species, mask, method="binary", ...)``, whose
-    density input the binary method never reads.
+def split_by_erosion_cores(labels, eroded, fg, wmin: int = 8, max_cores: int = 128):
+    """One level of the reference's marker split: regions of ``labels``
+    whose eroded mask holds >= 2 cores of >= wmin voxels are BFS-relabeled
+    to their nearest core; other regions are untouched.  Only the
+    ``max_cores`` largest cores can act as markers."""
+    cores = connected_components_same_value(eroded.to(torch.int32))
+    seed, seed_labels = erosion_split_seeds(labels, cores, fg, wmin, max_cores)
+    return nearest_seed_labels(seed, labels, fg, seed_labels)
 
-    Returns (atoms (N, max_atoms) int32 — 0 for empty slots,
-             centroids (N, max_atoms, 3) float32 voxel coordinates,
-             valid (N, max_atoms) bool).
-    """
+
+def atoms_from_regions(regions, species, fg, max_atoms: int = 64, min_voxels: int = 4,
+                       vote_classes: int = 95):
+    """The last stage of ``extract_atoms``: regions of < ``min_voxels``
+    voxels dropped, the largest ``max_atoms`` become slots, each slot's
+    majority-vote species and centroid.  ``regions`` int32 labels,
+    ``species`` int32 with 0 off ``fg``; returns what ``extract_atoms``
+    returns."""
     n = species.shape[0]
     shape = species.shape[1:]
     n_vox = shape[0] * shape[1] * shape[2]
     dev = species.device
-    fg = mask > 0
-    spec = torch.where(fg, species.to(torch.int32), 0)
-    lab3 = connected_components_same_value(fg.to(torch.int32))
-    er = fg
-    for _ in range(erosion_levels):
-        er = erode6(er)
-        lab3 = split_by_erosion_cores(lab3, er, fg, wmin=wmin)
-    spec_f = spec.reshape(n, -1)
+    spec_f = species.reshape(n, -1)
     fg_f = fg.reshape(n, -1)
-    labels = torch.where(fg_f, lab3.reshape(n, -1), n_vox)
+    labels = torch.where(fg_f, regions.reshape(n, -1), n_vox)
     top_idx, _, slot_valid = top_regions_by_size(labels, max_atoms, min_voxels, n_vox)
 
     # voxel -> slot membership, reduced by matmuls (exact: 0/1 and small
@@ -259,3 +301,32 @@ def extract_atoms(
     atoms = torch.where(valid, atoms, 0)
     centroids = torch.where(valid[..., None], centroids, 0.0)
     return atoms, centroids, valid
+
+
+def extract_atoms(
+    species: torch.Tensor,   # (N, d, d, d) int labels (0 = background)
+    mask: torch.Tensor,      # (N, d, d, d) binary occupancy
+    max_atoms: int = 64,
+    min_voxels: int = 4,
+    erosion_levels: int = 1,
+    wmin: int = 8,
+    vote_classes: int = 95,
+):
+    """Fixed-shape atom extraction over a batch of grids: the JAX
+    ``extract_atoms(density, species, mask, method="binary", ...)``, whose
+    density input the binary method never reads.  On the card: E1 once on
+    the foreground and once per erosion level on the cores, E2 once per
+    erosion level, no host synchronisation.
+
+    Returns (atoms (N, max_atoms) int32 — 0 for empty slots,
+             centroids (N, max_atoms, 3) float32 voxel coordinates,
+             valid (N, max_atoms) bool).
+    """
+    fg = mask > 0
+    spec = torch.where(fg, species.to(torch.int32), 0)
+    lab3 = connected_components_same_value(fg.to(torch.int32))
+    er = fg
+    for _ in range(erosion_levels):
+        er = erode6(er)
+        lab3 = split_by_erosion_cores(lab3, er, fg, wmin=wmin)
+    return atoms_from_regions(lab3, spec, fg, max_atoms, min_voxels, vote_classes)

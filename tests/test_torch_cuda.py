@@ -781,3 +781,111 @@ def test_evaluate_batch_on_card_matches_cpu(cuda_device, tmp_path):
     assert out["cuda"]["n_evaluated"] == out["cpu"]["n_evaluated"] == 4
     lc, lg = (np.asarray(out[d]["lattice_pred"]) for d in ("cpu", "cuda"))
     assert float(np.max(np.abs(lg - lc) / np.abs(lc))) <= 1e-2
+
+
+def _extract_operands(d: int, n: int, device, skip=()):
+    """E1 and E2 operands at d^3 on ``device``: n decoded-like blob masks,
+    their cores, the erosion split's seeds, and the adversarial grids of
+    test_torch_extract_plan (at d^3) but those named in ``skip``."""
+    import numpy as np
+
+    from icsg3d_torch.ops import extract as ex
+    from test_torch_extract_plan import adversarial, bfs_operands, blob_masks
+
+    fg = torch.from_numpy(blob_masks(n, (d, d, d), d)).to(device)
+    cc_ops = {"foreground": fg.to(torch.int32),
+              "cores": ex.erode6(fg).to(torch.int32)}
+    bfs_ops = {"split": bfs_operands(cc_ops["foreground"])}
+    for name, (grid, seeds) in adversarial(d).items():
+        if name in skip:
+            continue
+        cc_ops[name] = torch.from_numpy(np.ascontiguousarray(grid[None])).to(device)
+        if seeds is not None:
+            seeds = torch.from_numpy(seeds[None]).to(device)
+        bfs_ops[name] = bfs_operands(cc_ops[name], seeds)
+    return cc_ops, bfs_ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n", [(32, 4), (64, 2)])
+def test_extract_kernels_match_plain_on_card(cuda_device, d, n):
+    """E1 and E2 bitwise their plain versions on the same operands, and
+    E2's largest per-sample round count the plain version's; one launch
+    each."""
+    from icsg3d_torch.kernels import extract as kext
+    from icsg3d_torch.ops import extract as ex
+
+    # the snake at 32^3 only: at 64^3 its ~67,000 plain rounds take minutes
+    cc_ops, bfs_ops = _extract_operands(d, n, cuda_device,
+                                        skip=("snake",) if d == 64 else ())
+    for name, sp in cc_ops.items():
+        n0 = kext.launches_cc
+        got, rounds = kext.connected_components_cuda(sp)
+        torch.cuda.synchronize()
+        assert kext.launches_cc == n0 + 1
+        want, want_rounds = ex.connected_components_reference(sp, return_rounds=True)
+        assert torch.equal(got, want), name
+        assert 1 <= int(rounds.min()) and int(rounds.max()) <= want_rounds, name
+    for name, ops in bfs_ops.items():
+        seeds, cc, fg, sl = ops
+        n0 = kext.launches_bfs
+        got, rounds = kext.nearest_seed_labels_cuda(seeds, cc, fg, sl)
+        torch.cuda.synchronize()
+        assert kext.launches_bfs == n0 + 1
+        want, want_rounds = ex.nearest_seed_labels_reference(seeds, cc, fg, sl,
+                                                             return_rounds=True)
+        assert torch.equal(got, want), name
+        assert int(rounds.min()) >= 1 and int(rounds.max()) == want_rounds, name
+
+
+@pytest.mark.cuda
+def test_extract_kernel_wrappers_check_on_card(cuda_device):
+    from icsg3d_torch.kernels import extract as kext
+
+    sp = torch.zeros(1, 4, 4, 4, dtype=torch.int32, device=cuda_device)
+    b = sp > 0
+    with pytest.raises(ValueError, match="int32"):
+        kext.connected_components_cuda(sp.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        kext.connected_components_cuda(sp.transpose(1, 2))
+    with pytest.raises(ValueError, match="grid"):
+        kext.connected_components_cuda(sp[0])
+    with pytest.raises(ValueError, match="fg must be"):
+        kext.nearest_seed_labels_cuda(b, sp, b[:, :2])
+    with pytest.raises(ValueError, match="seed_labels"):
+        kext.nearest_seed_labels_cuda(b, sp, b, sp.long())
+
+
+@pytest.mark.cuda
+def test_extract_atoms_makes_no_host_sync_on_card(cuda_device):
+    """The card's extraction (E1 twice, E2 once, torch ops) never waits for
+    the device: it runs under sync-debug mode "error", and it returns to
+    the host while a long kernel queued before it is still running."""
+    from icsg3d_torch.kernels import extract as kext
+    from icsg3d_torch.ops.extract import extract_atoms
+    from test_torch_extract_plan import blob_masks
+
+    mask = torch.from_numpy(blob_masks(20, (32, 32, 32), 1)).to(cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    spec = torch.randint(1, 95, mask.shape, generator=g, dtype=torch.int32)
+    spec = torch.where(mask, spec.to(cuda_device), 0)
+    binary = mask.to(torch.int32)
+    cpu = extract_atoms(spec.cpu(), binary.cpu())
+    extract_atoms(spec, binary)  # builds and loads the kernels
+    torch.cuda.synchronize()
+    n_cc, n_bfs = kext.launches_cc, kext.launches_bfs
+    done = torch.cuda.Event()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(2_000_000_000)  # ~1 s of device time at H100 clocks
+        out = extract_atoms(spec, binary)
+        done.record()
+        still_running = not done.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert still_running
+    assert (kext.launches_cc - n_cc, kext.launches_bfs - n_bfs) == (2, 1)
+    assert int(cpu[2].sum()) > 0
+    for c, got in zip(cpu, out):
+        assert torch.allclose(c.double(), got.cpu().double(), atol=1e-5)

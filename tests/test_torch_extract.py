@@ -1,10 +1,12 @@
 """Extraction parity: the port's batched binary extraction
 (icsg3d_torch/ops/extract.py) against icsg3d_tpu's ``extract_atoms(...,
 method="binary", erosion_levels=1)`` on the blob fixtures of
-tests/test_extract.py, plus the grid transforms.
+tests/test_extract.py, plus the grid transforms; and the two loops
+(``connected_components_same_value``, ``nearest_seed_labels``) against
+JAX's on the adversarial grids of tests/test_torch_extract_plan.py.
 
-Atoms and ``valid`` must be equal exactly; centroids (means of integer
-voxel coordinates) agree to 1e-5.
+Atoms, ``valid`` and every label must be equal exactly; centroids (means
+of integer voxel coordinates) agree to 1e-5.
 """
 
 import jax.numpy as jnp
@@ -18,55 +20,13 @@ from icsg3d_torch.ops import grid as tgrid
 from icsg3d_tpu.config import GridSpec
 from icsg3d_tpu.ops import extract as jextract
 from icsg3d_tpu.ops import grid as jgrid
+from test_torch_extract_plan import BLOB_CASES, adversarial, bfs_operands
 
 torch.set_num_threads(1)
 
 
-def gaussian_blob(d, center, sigma=1.5):
-    g = np.mgrid[:d, :d, :d].astype(float)
-    d2 = sum((g[i] - center[i]) ** 2 for i in range(3))
-    return np.exp(-d2 / (2 * sigma**2))
-
-
-def _single_blob():
-    M = gaussian_blob(16, (8, 8, 8))
-    Sb = (M > 0.1).astype(np.int32)
-    return M, np.where(Sb, 26, 0), Sb
-
-
-def _two_blobs():
-    M = gaussian_blob(20, (5, 5, 5)) + gaussian_blob(20, (14, 14, 14))
-    Sb = (M > 0.1).astype(np.int32)
-    return M, np.where(Sb, 8, 0), Sb
-
-
-def _dumbbell():
-    M = gaussian_blob(26, (8, 13, 13), 2.0) + gaussian_blob(26, (17, 13, 13), 2.0)
-    Sb = (M > 0.08).astype(np.int32)
-    return M, np.where(Sb, 13, 0), Sb
-
-
-def _species_confused():
-    M = gaussian_blob(24, (12, 12, 12), 3.0)
-    Sb = (M > 0.08).astype(np.int32)
-    S = np.where(Sb, 26, 0)
-    rng = np.random.default_rng(0)
-    S[(rng.random(S.shape) < 0.3) & (Sb > 0)] = 25
-    return M, S, Sb
-
-
-def _empty():
-    z = np.zeros((8, 8, 8))
-    return z, z.astype(np.int32), z.astype(np.int32)
-
-
-CASES = {
-    "single_blob": _single_blob,
-    "two_blobs": _two_blobs,
-    "dumbbell": _dumbbell,
-    "species_confused": _species_confused,
-    "empty": _empty,
-}
+# the extraction fixtures, shared with the schedule replays
+CASES = BLOB_CASES
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -89,7 +49,7 @@ def test_binary_extraction_matches_jax(name):
 def test_batch_is_each_sample_alone():
     """A batch iterates until its slowest sample converges; the others must
     come out as they would alone."""
-    grids = [_single_blob(), _two_blobs()]
+    grids = [CASES["single_blob"](), CASES["two_blobs"]()]
     d = 20
     S = np.zeros((2, d, d, d), np.int32)
     Sb = np.zeros((2, d, d, d), np.int32)
@@ -137,3 +97,32 @@ def test_grid_transforms_match_jax():
     jc = jgrid.voxel_to_cartesian(jnp.asarray(mu), jl[:, None], jdv[:, None], jg)
     tc = tgrid.voxel_to_cartesian(torch.from_numpy(mu), tl[:, None], tdv[:, None], tg)
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(adversarial()))
+def test_loops_match_jax_on_adversarial_grids(name):
+    """Equidistant seeds (tie), the one-voxel-wide snake, the full grid, a
+    multi-valued grid, a non-cubic grid and the empty one: the port's two
+    loops on the CPU equal JAX's exactly, and so does the extraction."""
+    grid, seeds = adversarial()[name]
+    seeds_t = None if seeds is None else torch.from_numpy(seeds[None])
+    seed, cc, fg, seed_labels = bfs_operands(torch.from_numpy(grid[None]), seeds_t)
+    tcc = textract.connected_components_same_value(torch.from_numpy(grid[None]))
+    jcc = jextract.connected_components_same_value(jnp.asarray(grid))
+    np.testing.assert_array_equal(tcc[0].numpy(), np.asarray(jcc))
+    tlab = textract.nearest_seed_labels(seed, cc, fg, seed_labels)
+    jlab = jextract.nearest_seed_labels(
+        jnp.asarray(seed[0].numpy()), jnp.asarray(cc[0].numpy()),
+        jnp.asarray(fg[0].numpy()),
+        None if seed_labels is None else jnp.asarray(seed_labels[0].numpy()))
+    np.testing.assert_array_equal(tlab[0].numpy(), np.asarray(jlab))
+    mask = (grid > 0).astype(np.int32)
+    ja, jmu, jv = jextract.extract_atoms(
+        jnp.zeros(grid.shape, jnp.float32), jnp.asarray(grid), jnp.asarray(mask),
+        max_atoms=8, method="binary", erosion_levels=1,
+    )
+    ta, tmu, tv = textract.extract_atoms(
+        torch.from_numpy(grid[None]), torch.from_numpy(mask[None]), max_atoms=8)
+    np.testing.assert_array_equal(tv[0].numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(ta[0].numpy(), np.asarray(ja))
+    np.testing.assert_allclose(tmu[0].numpy(), np.asarray(jmu), atol=1e-5)

@@ -392,3 +392,66 @@ def test_train_cgcnn_batch_must_split_over_the_data_axis(monkeypatch, capsys):
                           "--device", "cpu", "--ckpt", "unused"])
     assert ("--batch-size 3 must be divisible by the data mesh axis (2 devices)"
             in capsys.readouterr().err)
+
+
+def test_extract_loops_take_the_plain_version_on_the_cpu(monkeypatch):
+    """The public loops run their plain versions on CPU tensors and never
+    reach the kernels there."""
+    from icsg3d_torch.kernels import extract as kext
+    from icsg3d_torch.ops import extract as ex
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached an extraction kernel")
+
+    monkeypatch.setattr(kext, "connected_components_cuda", boom)
+    monkeypatch.setattr(kext, "nearest_seed_labels_cuda", boom)
+    g = torch.Generator().manual_seed(0)
+    sp = torch.randint(0, 3, (2, 5, 6, 7), generator=g, dtype=torch.int32)
+    cc = ex.connected_components_same_value(sp)
+    assert torch.equal(cc, ex.connected_components_reference(sp))
+    seeds, fg = torch.rand(sp.shape, generator=g) < 0.1, sp > 0
+    lab = ex.nearest_seed_labels(seeds, cc, fg)
+    assert torch.equal(lab, ex.nearest_seed_labels_reference(seeds, cc, fg))
+    atoms, _, _ = ex.extract_atoms(sp, fg.to(torch.int32), max_atoms=4)
+    assert atoms.shape == (2, 4)
+
+
+def test_extract_loops_refuse_other_devices():
+    from icsg3d_torch.ops import extract as ex
+
+    sp = torch.zeros(1, 4, 4, 4, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ex.connected_components_same_value(sp)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        ex.nearest_seed_labels(sp > 0, sp, sp > 0)
+
+
+def test_extract_kernels_refuse_cpu_tensors():
+    """The kernel wrappers never fall back to the plain versions."""
+    from icsg3d_torch.kernels import extract as kext
+
+    sp = torch.zeros(1, 4, 4, 4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kext.connected_components_cuda(sp)
+    with pytest.raises(ValueError, match="CUDA"):
+        kext.nearest_seed_labels_cuda(sp > 0, sp, sp > 0)
+
+
+def test_extract_kernel_module_builds_nothing_when_imported():
+    """Importing the kernel module (and the extraction and generation that
+    import it) neither compiles nor loads the kernels."""
+    code = (
+        "import icsg3d_torch.kernels._nvcc as nv\n"
+        "def boom(*a, **k):\n"
+        "    raise AssertionError('built at import')\n"
+        "nv.build_library = nv.nvcc = boom\n"
+        "import icsg3d_torch.kernels.extract as k\n"
+        "import icsg3d_torch.ops.extract, icsg3d_torch.apps.generate\n"
+        "assert k._lib is None and k.launches_cc == k.launches_bfs == 0\n"
+        "print('IMPORT_OK')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "IMPORT_OK" in proc.stdout
