@@ -63,13 +63,18 @@ Phases (any failure exits nonzero, before the result line):
    against their plain versions on the same operands: the breakdown's
    decoded masks (E1 on the foreground and the erosion cores, E2 on the
    split's seeds), a batch of 128 (bench.py's fused generation batch,
-   decoded in chunks of 20), 4 of the masks at 64^3, and the adversarial
-   grids of tests/test_torch_extract_plan.py at 32^3 (empty, full, a
-   one-voxel-wide snake, a multi-valued grid, two seeds equidistant from
-   a box's middle plane, a non-cubic blob grid).  Labels bitwise equal,
-   E2's largest per-sample round count the plain version's; kernel and
-   plain CUDA-event medians, the byte bound (E1 8 bytes per voxel, E2 14
-   with seed labels, 10 without, over 3.35 TB/s), both round counts.
+   decoded in chunks of 20), 4 of the masks at 64^3, and (errors in the
+   kernels line, times not) batch 1 and 4 at 32^3, one mask at 64^3, one
+   at 96^3 (the smallest grid whose state the plan keeps in device
+   memory), and the adversarial grids of tests/test_torch_extract_plan.py
+   at 32^3 (empty, full, a one-voxel-wide snake, a multi-valued grid, two
+   seeds equidistant from a box's middle plane, a non-cubic blob grid).
+   Labels bitwise equal, E2's largest per-sample round count the plain
+   version's; each row gives the plan (CTAs per sample, shared or device
+   memory, the clusters the card runs at once), kernel and plain
+   CUDA-event medians, the byte bound (E1 8 bytes per voxel, E2 14 with
+   seed labels, 10 without, over 3.35 TB/s) and its share, E1's merge
+   passes or E2's rounds against the plain version's rounds.
 5. GPU vs CPU: the fused step for one batch of 2 on the card and on the
    CPU (plain versions), same weights and latents.  Lattices agree to
    1e-2 relative; extracted atoms agree wherever the masks agree, and the
@@ -914,19 +919,24 @@ def phase_breakdown(vae, unet, card: str):
 def phase_extract_kernels(vae, unet, card: str, spec20, binary20):
     """E1 and E2 against their plain versions on the card, on the same
     operands: outputs bitwise equal, E2's largest per-sample round count
-    the plain version's.  Operands: the breakdown's decoded, segmented
-    batch of 20 (E1 on the foreground and the erosion cores, E2 on the
-    split's seeds), a batch of 128 decoded in chunks of 20, 4 of the
-    batch's masks at 64^3 (each voxel doubled along each axis), and the
-    adversarial grids of tests/test_torch_extract_plan.py at D^3 (empty,
-    full from two corners, the one-voxel-wide snake from one end, a
-    multi-valued grid, two seeds equidistant from a box's middle plane)
-    and its non-cubic blob grid; their errors join the kernels line,
-    their times do not.  Each row: CUDA-event medians of kernel and
-    plain, the bound (the bytes read or written once over 3.35 TB/s: 8
-    per voxel for E1,
-    14 for E2 with seed labels, 10 without), its share, the rounds of
-    both; library none (no one PyTorch call computes either function)."""
+    the plain version's, no sample at the round cap.  Operands: the
+    breakdown's decoded, segmented batch of 20 (E1 on the foreground and
+    the erosion cores, E2 on the split's seeds), a batch of 128 decoded in
+    chunks of 20, 4 of the batch's masks at 64^3 (each voxel doubled along
+    each axis): their rows' times make the kernels line's sums.  Then, with
+    their errors in the kernels line and their times out of it: batch 1
+    and 4 at 32^3, one mask at 64^3, one at 96^3 (tripled; the plan keeps
+    its state in device memory), and the adversarial grids of
+    tests/test_torch_extract_plan.py at D^3 (empty, full from two corners,
+    the one-voxel-wide snake from one end, a multi-valued grid, two seeds
+    equidistant from a box's middle plane) and its non-cubic blob grid.
+    Each row: the plan (``kernels/extract.launch_plan``: CTAs per sample,
+    path, and the clusters of that size the card runs at once), CUDA-event
+    medians of kernel and plain, the bound (the bytes read or written once
+    over 3.35 TB/s: 8 per voxel for E1, 14 for E2 with seed labels, 10
+    without), its share, E1's merge passes or E2's rounds beside the
+    plain version's rounds; library none (no one PyTorch call computes
+    either function)."""
     import numpy as np
     import torch
 
@@ -948,17 +958,22 @@ def phase_extract_kernels(vae, unet, card: str, spec20, binary20):
             cond[:, 3] = 1.0
             chunks.append(_decode_segment(vae, unet, pipe, z.cuda(), cond.cuda())[4])
     fg128 = torch.cat(chunks)[:EXTRACT_BATCH] > 0
-    fg64 = binary20[:4] > 0
-    for dim in (1, 2, 3):
-        fg64 = fg64.repeat_interleave(2, dim=dim)
-    sets = {f"batch {BATCH}": binary20 > 0, f"batch {EXTRACT_BATCH}": fg128,
-            f"4 x {2 * D}^3": fg64.contiguous()}
+    fg20 = binary20 > 0
+
+    def scaled(fg, k):  # each voxel repeated k times along each axis
+        for dim in (1, 2, 3):
+            fg = fg.repeat_interleave(k, dim=dim)
+        return fg.contiguous()
+
+    sets = {f"batch {BATCH}": fg20, f"batch {EXTRACT_BATCH}": fg128,
+            f"4 x {2 * D}^3": scaled(fg20[:4], 2)}
+    more = {"batch 1": fg20[:1].contiguous(), "batch 4": fg20[:4].contiguous(),
+            f"1 x {2 * D}^3": scaled(fg20[:1], 2), f"1 x {3 * D}^3": scaled(fg20[:1], 3)}
 
     rows, checked = [], []
 
-    def row(kind, what, vox, per_voxel, fn, plain, adversarial):
+    def row(kind, what, grid, per_voxel, fn, plain, timed, slow=False):
         """Time and compare one kernel call with its plain version."""
-        slow = adversarial and what.startswith("snake")
         got, rounds = fn()
         want, want_rounds = plain()
         sync()
@@ -971,47 +986,53 @@ def phase_extract_kernels(vae, unet, card: str, spec20, binary20):
                   f"the plain version's {want_rounds}")
         ms = cuda_median_ms(fn)
         plain_ms = cuda_median_ms(plain, runs=1 if slow else 3, warmup=0 if slow else 1)
-        bms = 1e3 * vox * per_voxel / MEM_BYTES_PER_S
-        path = kext.state_path("cc" if kind == "E1" else "bfs", vox // len(rounds))
-        print(f"[extract-kernels] {kind} {what} ({card}): {path} state, kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms bytes "
-              f"(share {bms / ms:.4f}); rounds kernel {r_max} (least sample "
-              f"{r_min}), plain {want_rounds}; bitwise equal; library none")
-        (checked if adversarial else rows).append({
-            "pass": "cc" if kind == "E1" else "bfs", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": "bytes", "library_ms": None, "abs_err": 0.0})
+        bms = 1e3 * grid.numel() * per_voxel / MEM_BYTES_PER_S
+        name = "cc" if kind == "E1" else "bfs"
+        p = kext.launch_plan(name, grid)
+        n_vox = grid[0].numel()
+        active = kext.max_active_clusters(name, n_vox, grid.device)(
+            p.cluster, p.smem_bytes_per_cta, p.path)
+        count = "merge passes" if kind == "E1" else "rounds"
+        print(f"[extract-kernels] {kind} {what} ({card}): C={p.cluster} {p.path} "
+              f"({p.smem_bytes_per_cta} B/CTA, {active} such clusters at once); kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bms:.5f} ms bytes (share "
+              f"{bms / ms:.4f}); {count} kernel {r_max} (least sample {r_min}), plain "
+              f"rounds {want_rounds}; bitwise equal; library none")
+        (rows if timed else checked).append({
+            "pass": name, "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
+            "bound_by": "bytes", "library_ms": None, "abs_err": 0.0})
 
-    def e1(what, sp, adversarial=False):
+    def e1(what, sp, timed=True, slow=False):
         # int32 in, int32 out
-        row("E1", what, sp.numel(), 8, lambda: kext.connected_components_cuda(sp),
-            lambda: ex.connected_components_reference(sp, return_rounds=True),
-            adversarial)
+        row("E1", what, sp, 8, lambda: kext.connected_components_cuda(sp),
+            lambda: ex.connected_components_reference(sp, return_rounds=True), timed, slow)
 
-    def e2(what, seeds, cc, fg, seed_labels, adversarial=False):
+    def e2(what, seeds, cc, fg, seed_labels, timed=True, slow=False):
         # seeds and fg a byte each, cc (and seed labels) int32 in, int32 out
-        row("E2", what, cc.numel(), 10 if seed_labels is None else 14,
+        row("E2", what, cc, 10 if seed_labels is None else 14,
             lambda: kext.nearest_seed_labels_cuda(seeds, cc, fg, seed_labels),
             lambda: ex.nearest_seed_labels_reference(seeds, cc, fg, seed_labels,
-                                                     return_rounds=True),
-            adversarial)
+                                                     return_rounds=True), timed, slow)
 
     with torch.inference_mode():
-        for name, fg in sets.items():
-            shape = "x".join(str(s) for s in fg.shape)
-            fgi = fg.to(torch.int32)
-            core_i = ex.erode6(fg).to(torch.int32)
-            e1(f"foreground {name} ({shape})", fgi)
-            e1(f"erosion cores {name}", core_i)
-            lab = ex.connected_components_reference(fgi)
-            cores = ex.connected_components_reference(core_i)
-            seed, seed_labels = ex.erosion_split_seeds(lab, cores, fg)
-            e2(f"split seeds {name}", seed, lab, fg, seed_labels)
+        for timed, group in ((True, sets), (False, more)):
+            for name, fg in group.items():
+                shape = "x".join(str(s) for s in fg.shape)
+                fgi = fg.to(torch.int32)
+                core_i = ex.erode6(fg).to(torch.int32)
+                e1(f"foreground {name} ({shape})", fgi, timed)
+                e1(f"erosion cores {name}", core_i, timed)
+                lab = ex.connected_components_reference(fgi)
+                cores = ex.connected_components_reference(core_i)
+                seed, seed_labels = ex.erosion_split_seeds(lab, cores, fg)
+                e2(f"split seeds {name}", seed, lab, fg, seed_labels, timed)
         for name, (grid, seeds) in adversarial(D).items():
             what = f"{name} (1x{'x'.join(str(s) for s in grid.shape)})"
             grid = torch.from_numpy(grid[None]).cuda()
             seeds = None if seeds is None else torch.from_numpy(seeds[None]).cuda()
-            e1(what, grid, True)
-            e2(what, *bfs_operands(grid, seeds), True)
+            slow = name == "snake"
+            e1(what, grid, False, slow)
+            e2(what, *bfs_operands(grid, seeds), timed=False, slow=slow)
     return rows, checked
 
 

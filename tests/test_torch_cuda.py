@@ -807,35 +807,44 @@ def _extract_operands(d: int, n: int, device, skip=()):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,n", [(32, 4), (64, 2)])
-def test_extract_kernels_match_plain_on_card(cuda_device, d, n):
+@pytest.mark.parametrize("d,n,cluster", [(32, 4, 1), (32, 4, 4), (32, 4, 16), (64, 2, None)],
+                         ids=["32-c1", "32-c4", "32-c16", "64-plan"])
+def test_extract_kernels_match_plain_on_card(cuda_device, d, n, cluster):
     """E1 and E2 bitwise their plain versions on the same operands, and
     E2's largest per-sample round count the plain version's; one launch
-    each."""
+    each.  At 32^3 the cluster size is forced to 1, 4 and 16 CTAs per
+    sample; at 64^3 it is the plan's, with the state in shared memory."""
     from icsg3d_torch.kernels import extract as kext
     from icsg3d_torch.ops import extract as ex
 
     # the snake at 32^3 only: at 64^3 its ~67,000 plain rounds take minutes
     cc_ops, bfs_ops = _extract_operands(d, n, cuda_device,
                                         skip=("snake",) if d == 64 else ())
+    def size(grid):  # the non-cubic grid's 9 planes take only a cluster of one
+        return cluster if cluster and grid.shape[1] % cluster == 0 else None
+
     for name, sp in cc_ops.items():
+        p = kext.launch_plan("cc", sp, size(sp))
+        assert size(sp) in (None, p.cluster) and p.path == "shared"
         n0 = kext.launches_cc
-        got, rounds = kext.connected_components_cuda(sp)
+        got, rounds = kext.connected_components_cuda(sp, cluster=size(sp))
         torch.cuda.synchronize()
         assert kext.launches_cc == n0 + 1
         want, want_rounds = ex.connected_components_reference(sp, return_rounds=True)
-        assert torch.equal(got, want), name
-        assert 1 <= int(rounds.min()) and int(rounds.max()) <= want_rounds, name
+        assert torch.equal(got, want), (name, p)
+        assert 1 <= int(rounds.min()) and int(rounds.max()) <= want_rounds, (name, p)
     for name, ops in bfs_ops.items():
         seeds, cc, fg, sl = ops
+        p = kext.launch_plan("bfs", cc, size(cc))
+        assert size(cc) in (None, p.cluster) and p.path == "shared"
         n0 = kext.launches_bfs
-        got, rounds = kext.nearest_seed_labels_cuda(seeds, cc, fg, sl)
+        got, rounds = kext.nearest_seed_labels_cuda(seeds, cc, fg, sl, cluster=size(cc))
         torch.cuda.synchronize()
         assert kext.launches_bfs == n0 + 1
         want, want_rounds = ex.nearest_seed_labels_reference(seeds, cc, fg, sl,
                                                              return_rounds=True)
-        assert torch.equal(got, want), name
-        assert int(rounds.min()) >= 1 and int(rounds.max()) == want_rounds, name
+        assert torch.equal(got, want), (name, p)
+        assert int(rounds.min()) >= 1 and int(rounds.max()) == want_rounds, (name, p)
 
 
 @pytest.mark.cuda

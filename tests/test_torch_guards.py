@@ -146,6 +146,16 @@ def test_no_port_module_imports_matplotlib_at_module_level():
         assert not jax_pattern.search(text), path
 
 
+@pytest.mark.parametrize("tool", ["extract_time.py", "k4_time.py", "k4_sass.py"])
+def test_card_tools_import_no_jax(tool):
+    """The tools that time the port's kernels on the card run where there
+    is no JAX: neither they nor chip_smoke.py, which they import, may
+    import it."""
+    pattern = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|icsg3d_tpu)\b", re.M)
+    assert not pattern.search((REPO / "tools" / tool).read_text())
+
+
 def test_viz_is_the_jax_module_but_its_import_block():
     """icsg3d_torch/viz.py: its docstring and import block are its own (a
     lazy pyplot, ``available`` and the skip message); everything from the
