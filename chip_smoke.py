@@ -148,6 +148,27 @@ Phases (any failure exits nonzero, before the result line):
    every weight gradient's cosine at least 0.999; the launch counts of
    one sharded train and eval step alone; both train steps' times
    (CUDA-event medians, in turns); one profiled sharded train step.
+16a. The captured epoch (``[epoch-scan]``): ``apps.train_vae.main
+   --resident --epoch-scan`` (each epoch one upload of the permutation,
+   the train and eval steps as replays of CUDA graphs captured after one
+   eager warm-up step, one fetch; train/graphs.py) against ``--resident``'s
+   per-step loop with the same seed, 2 epochs each at production width:
+   the VAE at batch 20 on 300 parents (12 steps + 3 val batches) in turns
+   per-step, captured, captured, per-step, and with
+   ``--cache-true-features``; ``apps.train_unet.main`` at batch 10 on the
+   synthetic build in turns; the VAE at ``--spatial 2 --device
+   cuda:0,cuda:0`` on the 100 parents of phase 6.  Each captured run's
+   latest.npz (parameters, BatchNorm statistics, Adam's moments and step)
+   and history bitwise those of its per-step twin (the U-Net's per-class
+   CE sums within 1e-5: ``index_add_``'s float atomics); the card's
+   launches (each capture's recorded launches times its replays, plus the
+   eager ones) those of the per-step run, which match the per-step
+   counts; the train capture replayed every step but the warm-up.  Both
+   paths' epoch times in turns.  Then one train epoch of each path,
+   unprofiled in turns and once under torch.profiler, on one state (the
+   VAE at batch 20, the U-Net at 10): wall ms, steps/s, device busy ms,
+   idle share, kernels and host launch/copy calls per step, and the
+   captured epoch's graph launches (one per step).
 
 17. CGCNN training: ``icsg3d_torch.apps.train_cgcnn.main`` at production
    width (93 -> 64, 41 centres, 50 x 12 graphs, hidden 128, f32) on 320
@@ -245,7 +266,8 @@ every ``--fused`` generation: phase 4's, the trained checkpoints' of
 phases 6 and 11 and ``--cgcnn-ckpt``'s) and then ``{"ok": true,
 "device": {...}}``; the kernels' launches count generation with
 ``--cgcnn-ckpt``, evaluate, interpolate, view, the plots phase's
-trainers and the data-parallel ranks too.
+trainers, the data-parallel ranks and phase 16a's runs (captured
+launches times replays) too.
 """
 
 from __future__ import annotations
@@ -1097,16 +1119,16 @@ def phase_cpu_parity(vae, unet):
           f"from own masks gpu {int(g['valid'].sum())} cpu {int(c['valid'].sum())}")
 
 
-def write_train_dataset(path: str):
-    """TRAIN_PARENTS Gaussian-blob densities at 32^3 with lattice lengths
-    (so ``--nrot 0`` rebuilds the coordinate channels on the card) and the
-    matching coordinate grids (which generate reads)."""
+def write_train_dataset(path: str, n: int = None):
+    """``n`` (default TRAIN_PARENTS) Gaussian-blob densities at 32^3 with
+    lattice lengths (so ``--nrot 0`` rebuilds the coordinate channels on
+    the card) and the matching coordinate grids (which generate reads)."""
     import numpy as np
 
     from icsg3d_torch.data.store import GridDataset
 
     rng = np.random.default_rng(SEED + 4)
-    n, eps = TRAIN_PARENTS, 0.25
+    n, eps = n or TRAIN_PARENTS, 0.25
     g = np.mgrid[:D, :D, :D].astype(np.float32)
     density = np.zeros((n, D, D, D), np.float32)
     for i in range(n):
@@ -2095,6 +2117,306 @@ def phase_spatial_parity(tmp: str, unet_data: str, class_weights, card: str):
                      f"{label}-spatial-profile", card)
         del sharded, plain
         torch.cuda.empty_cache()
+
+
+# [epoch-scan]: the VAE split of its turns, at the VAE CLI's batch.
+EPOCH_PARENTS = 300  # 240 train (12 steps) + 60 val (3 batches) per epoch
+EPOCH_SCAN_EPOCHS = 2
+
+
+def captured_counts() -> dict:
+    """``read_counts()`` of the kernels the card ran: a wrapper counts a
+    launch that a CUDA graph captures once, at the capture
+    (train/graphs.py), so each capture's recorded launches are added once
+    more for every replay after the first."""
+    from icsg3d_torch.train import graphs
+
+    counts = read_counts()
+    for c in graphs.captures:
+        n = c.launches
+        add = {"fwd": n["conv3d"], "bias": n["conv3d[bias]"],
+               "folded": sum(n[f"conv3d[{e}]"] for e in FOLDED), "dx": n["conv3d_dx"],
+               "dw": n["conv3d_dw"], "fwd_valid": n["conv3d_valid"],
+               "valid_folded": sum(n[f"conv3d_valid[{e}]"] for e in FOLDED),
+               "dx_valid": n["conv3d_dx_valid"], "dw_valid": n["conv3d_dw_valid"]}
+        for key, v in add.items():
+            counts[key] += (c.replays - 1) * v
+    return counts
+
+
+def _epoch_scan_run(app, argv: list, ckpt: str, scan: bool):
+    """One trainer CLI run, --resident with or without --epoch-scan:
+    (history, the card's launches, [(capture, replays)], seconds)."""
+    from icsg3d_torch.train import graphs
+
+    sync()
+    reset_counts()
+    graphs.reset_captures()
+    t0 = time.perf_counter()
+    hist = app.main(argv + ["--ckpt", ckpt] + (["--epoch-scan"] if scan else []))
+    sync()
+    secs = time.perf_counter() - t0
+    caps = [(c.name, c.replays) for c in graphs.captures]
+    check(bool(caps) == scan, f"{app.__name__}: captures {caps} with epoch_scan={scan}")
+    return hist, captured_counts(), caps, secs
+
+
+def _same_training(label: str, runs: list) -> str:
+    """Each run's latest.npz (parameters, BatchNorm statistics, Adam's
+    moments and step) and history against the first run's: bitwise, except
+    the U-Net's per-class CE sums (``index_add_``'s float atomics), held to
+    1e-5 relative.  Returns what was seen."""
+    import numpy as np
+
+    ref_ckpt, ref_hist = runs[0]
+    with np.load(os.path.join(ref_ckpt, "latest.npz")) as f:
+        ref = {k: f[k] for k in f.files}
+    worst = 0.0
+    for ckpt, hist in runs[1:]:
+        with np.load(os.path.join(ckpt, "latest.npz")) as f:
+            got = {k: f[k] for k in f.files}
+        check(got.keys() == ref.keys(), f"{label}: latest.npz keys differ")
+        for key in ref:
+            check(np.array_equal(got[key], ref[key]),
+                  f"{label}: {key} differs from the per-step path (max abs "
+                  f"{float(np.abs(got[key] - ref[key]).max()):.3e})")
+        for e, (a, b) in enumerate(zip(ref_hist, hist)):
+            for split in ("train", "val"):
+                for key, v in a[split].items():
+                    if key == "ce_per_class":
+                        v, w = np.asarray(v), np.asarray(b[split][key])
+                        rel = float((np.abs(w - v) / np.maximum(np.abs(v), 1e-30)).max())
+                        worst = max(worst, rel)
+                        check(rel <= 1e-5, f"{label} epoch {e}: {split} ce_per_class "
+                              f"rel {rel:.3e} > 1e-5")
+                    else:
+                        check(b[split][key] == v, f"{label} epoch {e}: {split} {key} "
+                              f"{b[split][key]!r} != {v!r}")
+    return ("bitwise" if worst == 0.0 else
+            f"bitwise but ce_per_class (index_add_ atomics) rel {worst:.3e}")
+
+
+def epoch_profile(label: str, step_fn, epoch_fn, n_steps: int, card: str):
+    """One per-step and one captured train epoch of ``n_steps`` after the
+    runs that warm and capture them: the unprofiled wall ms of each (in
+    turns: per-step, captured, captured, per-step), then one profiled
+    epoch of each: device busy ms and the idle share against the
+    unprofiled wall, kernels per step, and the host's launch and copy calls
+    per step (graph launches apart)."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in (step_fn, epoch_fn):  # warm: the capture, the first launches
+        fn()
+        sync()
+    walls = {"per-step": [], "captured": []}
+    for name, fn in (("per-step", step_fn), ("captured", epoch_fn),
+                     ("captured", epoch_fn), ("per-step", step_fn)):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        walls[name].append((time.perf_counter() - t0) * 1e3)
+    host = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset|LaunchCooperative)")
+    out = {}
+    for name, fn in (("per-step", step_fn), ("captured", epoch_fn)):
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
+        calls = [e.name for e in events if e.device_type == DeviceType.CPU
+                 and host.match(e.name)]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        wall = statistics.median(walls[name])
+        kernels = [e for e in dev if "memcpy" not in e.name.lower()
+                   and "memset" not in e.name.lower()]
+        out[name] = {"wall_ms": wall, "busy_ms": busy, "idle": max(0.0, 1 - busy / wall),
+                     "kernels_per_step": len(kernels) / n_steps,
+                     "host_calls_per_step": len(calls) / n_steps,
+                     "graph_launches": sum("GraphLaunch" in c for c in calls)}
+        check(len(kernels) > 0, f"{label} {name}: the profiled epoch recorded no kernel")
+    for name, r in out.items():
+        print(f"[epoch-scan-profile] {label}, one train epoch of {n_steps} steps, {name} "
+              f"({card}): wall {r['wall_ms']:.3f} ms (median of {walls[name]}), "
+              f"{n_steps / r['wall_ms'] * 1e3:.2f} steps/s; profiled device busy "
+              f"{r['busy_ms']:.3f} ms, idle share {r['idle']:.3f}; per step "
+              f"{r['kernels_per_step']:.1f} kernels, {r['host_calls_per_step']:.2f} host "
+              f"launch/copy calls ({r['graph_launches']} graph launches in the epoch)")
+    check(out["captured"]["graph_launches"] == n_steps,
+          f"{label}: {out['captured']['graph_launches']} graph launches, want {n_steps}")
+
+
+def phase_epoch_scan(tmp: str, synthetic: str, card: str):
+    """``--resident --epoch-scan`` (the epoch as replays of a captured train
+    and eval step) against ``--resident``'s per-step loop of the same seed,
+    at production width, bitwise; then a profiled epoch of each path.
+    Returns the CLI runs' summed launches (captured launches x replays)."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps import common, train_unet, train_vae
+    from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
+    from icsg3d_torch.data.store import GridDataset
+    from icsg3d_torch.train import unet as tunet
+    from icsg3d_torch.train import vae as tvae
+
+    data = os.path.join(tmp, "epoch-data")
+    write_train_dataset(data, EPOCH_PARENTS)
+    unet_npz = os.path.join(tmp, "unet.npz")
+    vae_base = ["--data", data, "--unet-ckpt", unet_npz, "--batch-size", str(BATCH)]
+    small = ["--data", os.path.join(tmp, "train-data"), "--unet-ckpt", unet_npz,
+             "--batch-size", str(BATCH), "--device", SPATIAL_DEVICES, "--spatial",
+             str(SPATIAL)]
+    common_argv = ["--epochs", str(EPOCH_SCAN_EPOCHS), "--nrot", "0", "--resident",
+                   "--seed", str(SEED)]
+    unet_base = ["--data", synthetic, "--batch-size", str(UNET_BATCH)]
+    E = EPOCH_SCAN_EPOCHS
+
+    def steps(parents, batch):
+        return int(0.8 * parents) // batch, (parents - int(0.8 * parents)) // batch
+
+    def vae_want(cached):
+        t, v = steps(EPOCH_PARENTS, BATCH)
+        taps = len(UNET_PREFIX)
+        # the cache: one true-side tap forward per batch of the train split,
+        # then a train step without it
+        fwd = FWD_PER_STEP - taps * cached
+        pre = -(-int(0.8 * EPOCH_PARENTS) // BATCH) * taps * cached
+        return {**NO_LAUNCHES, "fwd": pre + E * (t * fwd + v * FWD_PER_STEP),
+                "bias": pre + E * (t * fwd + v * (1 + 2 * taps)),
+                "folded": E * v * (len(VAE_CONVS) - 1), "dx": E * t * DX_PER_STEP,
+                "dw": E * t * DW_PER_STEP}
+
+    t, v = steps(UNET_PARENTS, UNET_BATCH)
+    n = UNET_CONVS_N
+    unet_want = {**NO_LAUNCHES, "fwd": E * (t + v) * n, "bias": E * t * n,
+                 "folded": E * v * n, "dx": E * t * (n - 1), "dw": E * t * n}
+    spatial_want = {key: E * c for key, c in
+                    _steps_counts("vae", *steps(TRAIN_PARENTS, BATCH)).items()}
+    cases = [  # (label, app, argv, per-step/captured turns, launches)
+        ("train_vae", train_vae, vae_base + ["--device", DEVICE], (0, 1, 1, 0),
+         vae_want(False)),
+        ("train_vae --cache-true-features", train_vae,
+         vae_base + ["--device", DEVICE, "--cache-true-features"], (0, 1), vae_want(True)),
+        ("train_unet", train_unet, unet_base + ["--device", DEVICE], (0, 1, 1, 0),
+         unet_want),
+        (f"train_vae --spatial {SPATIAL}", train_vae, small, (0, 1), spatial_want),
+    ]
+    total = dict(NO_LAUNCHES)
+    for i, (label, app, argv, turns, want) in enumerate(cases):
+        runs, times, counts, captured = [], [], {}, None
+        for j, scan in enumerate(turns):
+            ckpt = os.path.join(tmp, f"epoch-scan-{i}-{j}")
+            hist, got, caps, secs = _epoch_scan_run(app, argv + common_argv, ckpt, scan)
+            check(len(hist) == EPOCH_SCAN_EPOCHS and all(
+                np.isfinite(h["train"]["loss"]) for h in hist),
+                f"{label}: history {hist}")
+            runs.append((ckpt, hist))
+            times.append(("captured" if scan else "per-step",
+                          [round(h["time"], 4) for h in hist]))
+            if scan in counts:
+                check(got == counts[scan], f"{label}: launches {got} != {counts[scan]}")
+            counts[scan] = got
+            total = {key: total[key] + got[key] for key in total}
+            if scan:
+                captured, steps = caps, hist[0]["steps"]
+                check(caps and caps[0][1] == EPOCH_SCAN_EPOCHS * steps - 1,
+                      f"{label}: captures {caps}, want {EPOCH_SCAN_EPOCHS * steps - 1} "
+                      "train replays (one warm-up step)")
+        check(counts[0] == want, f"{label}: the per-step path launched {counts[0]}, "
+              f"want {want}")
+        check(counts[1] == counts[0], f"{label}: the captured path launched "
+              f"{counts[1]}, the per-step path {counts[0]}")
+        seen = _same_training(label, runs)
+        steps = runs[0][1][0]["steps"]
+        print(f"[epoch-scan] {label} --resident --epoch-scan vs --resident, "
+              f"{EPOCH_SCAN_EPOCHS} epochs of {steps} steps ({card}): {seen}; launches "
+              f"{counts[1]} (captured launches x replays) = the per-step path's; "
+              f"captures (name, replays) {captured}; epoch times in turns (s; the captured epoch 0 "
+              f"holds the warm-up step and the capture): "
+              + ", ".join(f"{name} {t}" for name, t in times))
+
+    # profiled epochs, both paths on one state: the VAE at batch 20 on the
+    # epoch split's train rows, the U-Net at batch 10 on the synthetic build
+    unet = common.load_unet(UNetConfig(num_classes=95), unet_npz, grid_d=D,
+                            device=DEVICE)
+    ds = GridDataset(data)
+    n = int(0.8 * EPOCH_PARENTS) // BATCH * BATCH
+    cond = np.eye(10, dtype=np.float32)[np.arange(n) % 10]
+    vae_data = {"density": torch.from_numpy(np.array(ds.arrays["density"][:n],
+                                                     np.float16)).to(DEVICE),
+                "abc": torch.from_numpy(np.array(ds.arrays["lattice"][:n, :3],
+                                                 np.float32)).to(DEVICE),
+                "cond": torch.from_numpy(cond).to(DEVICE)}
+    state = tvae.create_vae_state(VAEConfig(grid=GridSpec(d=D)), 5e-4, SEED, DEVICE)
+    train_step, _ = tvae.make_vae_steps(state.model, unet)
+    train_epoch, _ = tvae.make_vae_epoch_fns(state.model, unet)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    epoch_profile(
+        f"VAE at batch {BATCH}",
+        lambda: _per_step_epoch(state, vae_data, n // BATCH, BATCH,
+                                lambda s, b: train_step(s, b, _noise(gen)), _perm_rows),
+        lambda: _captured_epoch(state, vae_data, n // BATCH, BATCH, train_epoch,
+                                lambda: torch.stack([_noise(gen) for _ in range(n // BATCH)])),
+        n // BATCH, card)
+    del state, train_epoch, vae_data
+    uds = GridDataset(synthetic)
+    n = int(0.8 * UNET_PARENTS) // UNET_BATCH * UNET_BATCH
+    unet_data = {"density": torch.from_numpy(np.array(uds.arrays["density"][:n],
+                                                      np.float16)).to(DEVICE),
+                 "abc": torch.from_numpy(np.array(uds.arrays["lattice"][:n, :3],
+                                                  np.float32)).to(DEVICE),
+                 "labels": torch.from_numpy(np.minimum(np.asarray(
+                     uds.arrays["species"][:n]), 94).astype(np.uint8)).to(DEVICE)}
+    ustate = tunet.create_unet_state(UNetConfig(num_classes=95), 3e-6, SEED, DEVICE)
+    utrain, _ = tunet.make_unet_steps(ustate.model)
+    uepoch, _ = tunet.make_unet_epoch_fns(ustate.model)
+    epoch_profile(
+        f"U-Net at batch {UNET_BATCH}",
+        lambda: _per_step_epoch(ustate, unet_data, n // UNET_BATCH, UNET_BATCH, utrain,
+                                _perm_rows),
+        lambda: _captured_epoch(ustate, unet_data, n // UNET_BATCH, UNET_BATCH, uepoch,
+                                lambda: None),
+        n // UNET_BATCH, card)
+    return total
+
+
+def _noise(gen):
+    import torch
+
+    return torch.randn((BATCH, 256), generator=gen, device=DEVICE)
+
+
+def _perm_rows(n_steps: int, batch: int):
+    """A host permutation of the split's rows, (n_steps, batch)."""
+    import numpy as np
+
+    return np.random.default_rng(SEED).permutation(n_steps * batch).reshape(n_steps, batch)
+
+
+def _per_step_epoch(state, data, n_steps, batch, step, perm_rows):
+    """The trainers' per-step resident epoch: an index upload, a gather and
+    a step per batch, then one fetch of the stacked metrics."""
+    import torch
+
+    mets = []
+    for rows in perm_rows(n_steps, batch):
+        idx = torch.from_numpy(rows).to(DEVICE)
+        mets.append(step(state, {k: v[idx] for k, v in data.items()}))
+    return {k: torch.stack([m[k] for m in mets]).float().cpu() for k in mets[0]}
+
+
+def _captured_epoch(state, data, n_steps, batch, program, noise):
+    """The trainers' --epoch-scan epoch: one upload, the replays, one fetch."""
+    import torch
+
+    rows = torch.from_numpy(_perm_rows(n_steps, batch)).to(DEVICE)
+    return program(state, data, rows, noise()).cpu()
 
 
 def phase_train_cgcnn(tmp: str, card: str):
@@ -3493,6 +3815,8 @@ def main() -> None:
         with plots_off():
             spatial_counts = phase_train_spatial(tmp, synthetic, card)
         phase_spatial_parity(tmp, synthetic, class_weights, card)
+        with plots_off():
+            epoch_counts = phase_epoch_scan(tmp, synthetic, card)
         ckpts = phase_train_cgcnn(tmp, card)
         phase_cgcnn_cpu_parity(card)
         dp_counts = [phase_dp_nccl(tmp, synthetic, card),
@@ -3508,7 +3832,8 @@ def main() -> None:
 
     # launches on the main paths: generation (fused and host), VAE
     # training, the two dataset builds, U-Net training, both trainers at
-    # --spatial, the data-parallel ranks (training over NCCL and gloo, the
+    # --spatial, the trainers' --epoch-scan runs and their per-step twins
+    # (captured launches x replays), the data-parallel ranks (training over NCCL and gloo, the
     # build in parts), generation with --cgcnn-ckpt, evaluate, interpolate
     # (pair and sweep), view and the plots phase's trainers
     gen_counts = [{"bias": r["by_epilogue"]["bias"],
@@ -3516,7 +3841,7 @@ def main() -> None:
                    "dx": 0, "dw": 0, "vox": 0, "cc": r["cc"], "bfs": r["bfs"]}
                   for r in runs.values()]
     paths = gen_counts + [train_counts, vox_counts, unet_counts, spatial_counts,
-                          *dp_counts, gen_cgcnn_counts, eval_counts, *interp_counts, view_counts,
+                          epoch_counts, *dp_counts, gen_cgcnn_counts, eval_counts, *interp_counts, view_counts,
                           plots_counts]
     count_key = {"conv3d_same[bias]": "bias", "conv3d_same[folded_bn]": "folded",
                  "conv3d_same[dx]": "dx", "conv3d_dw": "dw", "voxelize": "vox",

@@ -10,7 +10,14 @@ parameters; on the CPU in float32.
   (train/checkpoints.py: ``<dir>/best.npz``, ``<dir>/latest.npz``) or an
   ``.npz`` exported from a Flax checkpoint; an Orbax directory raises.
 - ``--layout`` is accepted and changes nothing (the port has one layout).
-  ``--epoch-scan`` runs the resident per-step loop.
+- ``--epoch-scan`` (with ``--resident``) runs each epoch as one program on
+  the card: the epoch's permutation is uploaded once, every train and
+  eval step is a replay of a CUDA graph captured after one eager warm-up
+  step, and the metrics are fetched once (train/graphs.py); the batches,
+  noise and updates are ``--resident``'s, so ``--resume`` may switch
+  between the two.  On the CPU the same steps run eagerly.  With a
+  process group, or a mesh on several cards, it prints why it is not
+  captured and runs ``--resident``'s loop.
 - Plots: the best-val plots go to ``<ckpt>/plots`` (at most one refresh
   per ``--plot-every`` epochs) and the loss curves to ``<ckpt>/loss.png``
   where matplotlib imports; elsewhere the run prints ``plots skipped:
@@ -102,9 +109,10 @@ def main(argv=None):
                         "once for the resident train split and gather them "
                         "per batch (requires --resident and --unet-ckpt)")
     p.add_argument("--epoch-scan", action="store_true",
-                   help="accepted for flag parity (requires --resident): runs "
-                        "the resident per-step loop, with identical batches "
-                        "and noise")
+                   help="run each resident epoch as replays of a captured "
+                        "train and eval step on the card: one permutation "
+                        "upload and one metrics fetch per epoch, the batches "
+                        "and noise of --resident (requires --resident)")
     p.add_argument("--resident", action="store_true",
                    help="keep the whole train/val split on the device and "
                         "gather batches by index (requires --nrot 0)")

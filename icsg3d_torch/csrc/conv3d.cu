@@ -93,6 +93,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -570,8 +572,8 @@ cudaError_t launch_wgmma(const float* bias, const float* scale, const float* shi
                          const Geom& p, unsigned grid, int smem, const CUtensorMap& ta,
                          const CUtensorMap& tw, cudaStream_t s) {
   auto kern = conv3d_wgmma_kernel<BN, DX>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int allowed[kSmemLimitDevices] = {};  // this instantiation's limits
+  const cudaError_t err = allow_dynamic_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   kern<<<grid, NTW, smem, s>>>(bias, scale, shift, out, p, ta, tw);
   return cudaGetLastError();
@@ -817,8 +819,8 @@ cudaError_t launch_f32(const float* x, const float* w, const float* bias, const 
                        const float* shift, void* out, const FGeom& p, dim3 grid,
                        int threads, int smem, cudaStream_t s) {
   auto kern = conv3d_f32_kernel<TOut>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int allowed[kSmemLimitDevices] = {};  // this instantiation's limits
+  const cudaError_t err = allow_dynamic_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   kern<<<grid, threads, smem, s>>>(x, w, bias, scale, shift, static_cast<TOut*>(out), p);
   return cudaGetLastError();

@@ -86,6 +86,8 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "smem_limit.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -404,8 +406,8 @@ cudaError_t launch_wgmma(const bf16* x, const bf16* g, float* out, const Geom& p
                          int smem, const CUtensorMap& tmx, const CUtensorMap& tmg,
                          cudaStream_t s) {
   auto kern = conv3d_dw_wgmma_kernel<BN, SWAP, TMA>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int allowed[kSmemLimitDevices] = {};  // this instantiation's limits
+  const cudaError_t err = allow_dynamic_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   kern<<<grid, NTB, smem, s>>>(x, g, out, p, tmx, tmg);
   return cudaGetLastError();
@@ -617,8 +619,8 @@ template <int CT>
 cudaError_t launch_dw_f32(const float* x, const float* g, float* ws, const FGeom& p, dim3 grid,
                           int threads, int smem, cudaStream_t s) {
   auto kern = conv3d_dw_f32_kernel<CT>;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static int allowed[kSmemLimitDevices] = {};  // this instantiation's limits
+  const cudaError_t err = allow_dynamic_smem(kern, smem, allowed);
   if (err != cudaSuccess) return err;
   kern<<<grid, threads, smem, s>>>(x, g, ws, p);
   return cudaGetLastError();

@@ -62,6 +62,12 @@ Build: ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared`` into
 ``icsg3d_torch/_build/`` on first use (kernels/_nvcc.py), loaded with
 ctypes (plain C interface).  Nothing is imported or built when this module
 is imported.
+
+Capture: a launch allocates through torch, runs on torch's current stream
+and never syncs; its plan and TMA descriptors are fixed on the host from
+the operands' addresses, and its shared-memory limit is set once per shape
+(csrc/smem_limit.cuh), so after one launch at a shape it may be captured in
+a CUDA graph whose pool keeps those addresses (train/graphs.py).
 """
 
 from __future__ import annotations

@@ -30,6 +30,12 @@ lowc_conv.py:380-387) takes x as a halo-padded depth slab of D + 2 planes
 and g with D: the per-shard dW of a depth-sharded conv (parallel/halo.py).
 The split-K ranges run over g's chunks.  Counters: ``launches`` (SAME),
 ``launches_valid`` (VALID).
+
+Capture: the workspace comes from torch's allocator, both passes run on
+torch's current stream with no sync, the plan and TMA descriptors are
+fixed on the host and the shared-memory limit is set once per shape
+(csrc/smem_limit.cuh), so after one launch at a shape it may be captured
+in a CUDA graph (train/graphs.py).
 """
 
 from __future__ import annotations

@@ -65,7 +65,10 @@ def _p_true(labels, probs):
 
 
 def _count(labels, probs):
-    return torch.tensor(float(labels.numel()), device=probs.device)
+    # a fill on the device, not a host->device copy (which a CUDA graph
+    # capture refuses)
+    return torch.full((), float(labels.numel()), dtype=torch.float32,
+                      device=probs.device)
 
 
 def recall_from_labels(labels, probs):

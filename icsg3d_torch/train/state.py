@@ -12,6 +12,13 @@ port's checkpoint format (train/checkpoints.py).
 axis across processes: ``reduce_gradients`` averages the gradients over its
 ranks before the Adam step, so every rank applies the global batch's
 update to its replica of the parameters.
+
+On CUDA parameters Adam is ``capturable``: its step count and bias
+correction live on the card, so an update can be captured in a CUDA graph
+(train/graphs.py) and the per-step and captured epochs take the same
+update, bit for bit.  On the CPU it is torch's default Adam (torch refuses
+``capturable`` there).  ``step``, the host's count, is advanced by
+``apply_gradients`` or, for replayed steps, by the epoch program.
 """
 
 from __future__ import annotations
@@ -47,8 +54,10 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, learning_rate: float,
                group=None) -> "TrainState":
+        cuda = next(model.parameters()).is_cuda
         adam = torch.optim.Adam(model.parameters(), lr=learning_rate,
-                                betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+                                betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+                                capturable=cuda)
         return cls(model, adam, 0, group)
 
     def reduce_gradients(self) -> None:
@@ -57,11 +66,15 @@ class TrainState:
         if self.group is not None:
             distributed.reduce_gradients(self.model.parameters(), self.group)
 
-    def apply_gradients(self) -> None:
-        """The update after ``backward``: the gradients' all-reduce, one
-        Adam step, the step count."""
+    def update(self) -> None:
+        """The device work of the update after ``backward``: the gradients'
+        all-reduce and one Adam step (the step count is the caller's)."""
         self.reduce_gradients()
         self.optimizer.step()
+
+    def apply_gradients(self) -> None:
+        """The update after ``backward``: ``update``, then the step count."""
+        self.update()
         self.step += 1
 
     def arrays(self, with_optimizer: bool = True) -> Dict[str, np.ndarray]:
@@ -91,7 +104,9 @@ class TrainState:
             return
         for name, p in self.model.named_parameters():
             st = self.optimizer.state[p]
-            st["step"] = torch.tensor(float(self.step), dtype=torch.float32)
+            # on the parameter's device: capturable Adam keeps it there
+            st["step"] = torch.tensor(float(self.step), dtype=torch.float32,
+                                      device=p.device)
             for m in MOMENTS:
                 st[_TORCH_MOMENT[m]] = torch.from_numpy(
                     np.asarray(flat[f"opt_state/{m}/{flax_key(name)}"], np.float32)

@@ -39,6 +39,12 @@ from icsg3d_torch.ops import losses, metrics
 from icsg3d_torch.parallel.distributed import all_reduce_, group_rank, group_size
 from icsg3d_torch.parallel.mesh import Mesh, shard_batch
 from icsg3d_torch.train.checkpoints import CheckpointManager, PlotThinning
+from icsg3d_torch.train.graphs import (
+    EpochProgram,
+    capture_refusal,
+    epoch_rows,
+    run_epoch,
+)
 from icsg3d_torch.train.state import TrainState
 from icsg3d_torch.train.vae import _assemble_x, _host_metrics
 
@@ -115,6 +121,30 @@ def losses_from_logits(soft: torch.Tensor, sig: torch.Tensor, labels: torch.Tens
     return loss, mets
 
 
+def _unet_step_bodies(model: UNet3D, class_weights):
+    """(train_body, eval_step), each ``(state, batch) -> metrics``; the
+    train body updates the parameters but leaves ``state.step`` to its
+    caller (``make_unet_steps`` or the epoch program)."""
+    nc = model.cfg.num_classes
+    device = next(model.parameters()).device
+    cw = (torch.ones(nc) if class_weights is None
+          else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32))
+    cw = cw.to(device)
+
+    def train_body(state: TrainState, batch):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss, mets = _unet_losses(state.model, batch, cw, True, state.group)
+        loss.backward()
+        state.update()
+        return mets
+
+    def eval_step(state: TrainState, batch):
+        with torch.no_grad():
+            return _unet_losses(state.model, batch, cw, False, state.group)[1]
+
+    return train_body, eval_step
+
+
 def make_unet_steps(model: UNet3D, class_weights=None, resident: bool = False):
     """Build (train_step, eval_step): ``(state, batch) -> metrics`` (tensors
     on the model's device; no host sync).
@@ -125,22 +155,12 @@ def make_unet_steps(model: UNet3D, class_weights=None, resident: bool = False):
     process group in the state the batch (or ``idx``) is this rank's rows
     and the metrics are the global batch's.
     """
-    nc = model.cfg.num_classes
-    device = next(model.parameters()).device
-    cw = (torch.ones(nc) if class_weights is None
-          else torch.as_tensor(np.asarray(class_weights), dtype=torch.float32))
-    cw = cw.to(device)
+    train_body, eval_step = _unet_step_bodies(model, class_weights)
 
     def train_step(state: TrainState, batch):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, mets = _unet_losses(state.model, batch, cw, True, state.group)
-        loss.backward()
-        state.apply_gradients()
+        mets = train_body(state, batch)
+        state.step += 1
         return mets
-
-    def eval_step(state: TrainState, batch):
-        with torch.no_grad():
-            return _unet_losses(state.model, batch, cw, False, state.group)[1]
 
     if not resident:
         return train_step, eval_step
@@ -150,6 +170,21 @@ def make_unet_steps(model: UNet3D, class_weights=None, resident: bool = False):
 
     return (lambda state, data, idx: train_step(state, _gather(data, idx)),
             lambda state, data, idx: eval_step(state, _gather(data, idx)))
+
+
+def make_unet_epoch_fns(model: UNet3D, class_weights=None):
+    """Whole-epoch programs for a device-resident split (the counterpart of
+    icsg3d_tpu/train/unet.py:165, ``--epoch-scan``): (train_epoch,
+    val_epoch), each ``(state, data, rows) -> (n_steps, k) metric buffer``
+    (train/graphs.EpochProgram), ``rows`` the (n_steps, batch) row indices
+    on the device.  Step i runs the step of ``make_unet_steps`` on those
+    rows: a captured step replayed once per step on a CUDA model, the same
+    body eagerly on the CPU.  ``program.means(fetched rows)`` takes the
+    means over the step axis only, so ``ce_class_sum`` and ``class_count``
+    keep their (num_classes,) shape for ``_fold_per_class_ce``."""
+    train_body, eval_step = _unet_step_bodies(model, class_weights)
+    return (EpochProgram("unet_train", lambda st, b, _: train_body(st, b), train=True),
+            EpochProgram("unet_eval", lambda st, b, _: eval_step(st, b), train=False))
 
 
 def prepare_unet_batch(
@@ -250,9 +285,14 @@ def train_unet(
     resident_data=(train_dict, val_dict) instead keeps both splits on the
     device and gathers every batch by index, from the per-epoch host
     permutation ``np.random.default_rng((shuffle_seed, epoch))``; it needs
-    ``batch_size``.  epoch_scan (resident only) runs that same per-step
-    loop: the JAX contract is the per-step resident batch order, which
-    holds trivially.  The final ``latest`` save always runs.  With a
+    ``batch_size``.  epoch_scan (resident only) runs each epoch through
+    ``make_unet_epoch_fns``: one upload of the (n_steps, batch)
+    permutation, the steps as replays of a captured train and eval step
+    on a CUDA model (eagerly on the CPU), one fetch of the metric rows;
+    the batches are the per-step path's, so the two give the same
+    trajectory.  With a process group, or a mesh on several devices, it
+    says why and runs the per-step loop (train/graphs.capture_refusal).
+    The final ``latest`` save always runs.  With a
     process group in ``state`` each rank trains on its rows of every batch
     and only rank 0 writes checkpoints and plots.  Returns (state,
     history).
@@ -269,6 +309,12 @@ def train_unet(
     history = []
     last_val_batch = None
     thinning = PlotThinning(plot_min_interval)
+    if epoch_scan:
+        refusal = capture_refusal(state)
+        if refusal:
+            log_fn(f"--epoch-scan: not captured ({refusal}); running the "
+                   "per-step resident loop")
+            epoch_scan = False
     if resident:
         if not batch_size:
             raise ValueError("resident_data requires batch_size")
@@ -288,31 +334,41 @@ def train_unet(
         if nb_val:  # the plotted batch: the last full val batch
             idx = rows(np.arange((nb_val - 1) * batch_size, nb_val * batch_size))
             last_val_batch = {k: v[idx] for k, v in v_dev.items()}
+        if epoch_scan:
+            programs = make_unet_epoch_fns(model, class_weights)
+            val = (v_dev, epoch_rows(np.arange(n_val), nb_val, batch_size, device)
+                   ) if nb_val else None
 
     for epoch in range(epochs):
         t0 = time.time()
-        train_mets, val_mets = [], []
-        if resident:
+        if epoch_scan and nb_train:
             perm = np.random.default_rng((shuffle_seed, epoch)).permutation(n_train)
-            for i in range(nb_train):
-                idx = rows(perm[i * batch_size:(i + 1) * batch_size])
-                train_mets.append(train_step(state, t_dev, idx))
-            for i in range(nb_val):
-                idx = rows(np.arange(i * batch_size, (i + 1) * batch_size))
-                val_mets.append(eval_step(state, v_dev, idx))
+            tm, vm = run_epoch(programs, state, [
+                (t_dev, epoch_rows(perm, nb_train, batch_size, device)), val])
+            n_steps = nb_train
         else:
-            for b in prefetch_to_device(train_batches(), device, group):
-                train_mets.append(train_step(state, b))
-            for b in prefetch_to_device(val_batches(), device, group):
-                val_mets.append(eval_step(state, b))
-                last_val_batch = b
-        tm = _host_metrics(train_mets)
+            train_mets, val_mets = [], []
+            if resident:
+                perm = np.random.default_rng((shuffle_seed, epoch)).permutation(n_train)
+                for i in range(nb_train):
+                    idx = rows(perm[i * batch_size:(i + 1) * batch_size])
+                    train_mets.append(train_step(state, t_dev, idx))
+                for i in range(nb_val):
+                    idx = rows(np.arange(i * batch_size, (i + 1) * batch_size))
+                    val_mets.append(eval_step(state, v_dev, idx))
+            else:
+                for b in prefetch_to_device(train_batches(), device, group):
+                    train_mets.append(train_step(state, b))
+                for b in prefetch_to_device(val_batches(), device, group):
+                    val_mets.append(eval_step(state, b))
+                    last_val_batch = b
+            tm, vm = _host_metrics(train_mets), _host_metrics(val_mets)
+            n_steps = len(train_mets)
         if not tm:
             raise ValueError(
                 "no train batches: the train split is smaller than the "
                 "batch size (remainders are dropped)"
             )
-        vm = _host_metrics(val_mets)
         if not vm:
             if epoch == 0:
                 log_fn(
@@ -325,7 +381,7 @@ def train_unet(
         vm = _fold_per_class_ce(vm)
         epoch_time = time.time() - t0
         history.append({"train": tm, "val": vm, "time": epoch_time,
-                        "steps": len(train_mets)})
+                        "steps": n_steps})
         log_fn(
             f"epoch {epoch}: time {epoch_time:.2f}s "
             f"train loss {tm['loss']:.4f} ce {tm['ce']:.4f} "

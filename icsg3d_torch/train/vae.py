@@ -42,6 +42,12 @@ from icsg3d_torch.parallel.distributed import group_rank, group_size, mean_over_
 from icsg3d_torch.parallel.mesh import Mesh, shard_batch
 from icsg3d_torch.train.checkpoints import CheckpointManager, PlotThinning
 from icsg3d_torch.train.common import mean_metrics as _mean_metrics
+from icsg3d_torch.train.graphs import (
+    EpochProgram,
+    capture_refusal,
+    epoch_rows,
+    run_epoch,
+)
 from icsg3d_torch.train.state import TrainState
 
 
@@ -108,7 +114,10 @@ def _vae_losses(model: ConditionalDFCVAE, unet: Optional[UNet3D], batch, eps,
         if remat_perceptual and torch.is_grad_enabled():
             # recompute the recon-side forward in the backward pass instead
             # of keeping its activations
-            f_pred = checkpoint(feats, recon, use_reentrant=False)
+            # (the frozen forward draws no random numbers, so no RNG state
+            # is saved and restored: nothing for a CUDA graph to hold)
+            f_pred = checkpoint(feats, recon, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             f_pred = feats(recon)
         pm = losses.perceptual_feature_loss(f_true, f_pred,
@@ -126,6 +135,30 @@ def _vae_losses(model: ConditionalDFCVAE, unet: Optional[UNet3D], batch, eps,
     return total, mets
 
 
+def _vae_step_bodies(model: ConditionalDFCVAE, unet: Optional[UNet3D],
+                     remat_perceptual: bool):
+    """(train_body, eval_step), each ``(state, batch, eps) -> metrics``; the
+    train body updates the parameters but leaves ``state.step`` to its
+    caller (``make_vae_steps`` or the epoch program)."""
+    if unet is not None:
+        unet.eval().requires_grad_(False)
+
+    def train_body(state: TrainState, batch, eps):
+        state.optimizer.zero_grad(set_to_none=True)
+        total, mets = _vae_losses(state.model, unet, batch, eps, train=True,
+                                  remat_perceptual=remat_perceptual)
+        total.backward()
+        state.update()
+        return mean_over_ranks({k: v.detach() for k, v in mets.items()}, state.group)
+
+    def eval_step(state: TrainState, batch, eps):
+        with torch.no_grad():
+            _, mets = _vae_losses(state.model, unet, batch, eps, train=False)
+        return mean_over_ranks(mets, state.group)
+
+    return train_body, eval_step
+
+
 def make_vae_steps(model: ConditionalDFCVAE, unet: Optional[UNet3D] = None,
                    remat_perceptual: bool = False):
     """Build (train_step, eval_step), each ``(state, batch, eps) ->
@@ -136,23 +169,35 @@ def make_vae_steps(model: ConditionalDFCVAE, unet: Optional[UNet3D] = None,
     in the state, ``batch`` and ``eps`` are this rank's rows and the
     metrics are the global batch's.
     """
-    if unet is not None:
-        unet.eval().requires_grad_(False)
+    train_body, eval_step = _vae_step_bodies(model, unet, remat_perceptual)
 
     def train_step(state: TrainState, batch, eps):
-        state.optimizer.zero_grad(set_to_none=True)
-        total, mets = _vae_losses(state.model, unet, batch, eps, train=True,
-                                  remat_perceptual=remat_perceptual)
-        total.backward()
-        state.apply_gradients()
-        return mean_over_ranks({k: v.detach() for k, v in mets.items()}, state.group)
-
-    def eval_step(state: TrainState, batch, eps):
-        with torch.no_grad():
-            _, mets = _vae_losses(state.model, unet, batch, eps, train=False)
-        return mean_over_ranks(mets, state.group)
+        mets = train_body(state, batch, eps)
+        state.step += 1
+        return mets
 
     return train_step, eval_step
+
+
+def make_vae_epoch_fns(model: ConditionalDFCVAE, unet: Optional[UNet3D] = None,
+                       remat_perceptual: bool = False):
+    """Whole-epoch programs for a device-resident split (the counterpart of
+    icsg3d_tpu/train/vae.py:228, ``--epoch-scan``): (train_epoch,
+    val_epoch), each ``(state, data, rows, noise) -> (n_steps, k) metric
+    buffer`` (train/graphs.EpochProgram).
+
+    ``data`` is the resident split on the model's device (with the cached
+    ``pfeat_<tap>`` entries of ``precompute_true_features``, gathered like
+    every field); ``rows`` the (n_steps, batch) row indices on the device;
+    ``noise`` the (n_steps, batch, latent) rows, row i the i-th draw of the
+    per-step path's generator.  Step i runs the step of ``make_vae_steps``
+    on those rows and that noise, so both paths take the same batches,
+    noise and updates.  On a CUDA model each is a captured step replayed
+    once per step; on the CPU the same body runs eagerly.  Metric means:
+    ``program.means(fetched rows)``."""
+    train_body, eval_step = _vae_step_bodies(model, unet, remat_perceptual)
+    return (EpochProgram("vae_train", train_body, train=True),
+            EpochProgram("vae_eval", eval_step, train=False))
 
 
 def true_feature_cache_bytes(model: ConditionalDFCVAE, unet: UNet3D,
@@ -297,9 +342,15 @@ def train_vae(
     val_dict) instead keeps both splits on the device and gathers every
     batch by index, from the per-epoch host permutation
     ``np.random.default_rng((shuffle_seed, epoch))`` of the JAX package.
-    epoch_scan (resident only) runs that same per-step loop: the JAX
-    contract is identical batches and noise structure (train/vae.py:
-    254-267), which holds trivially.
+    epoch_scan (resident only) runs each epoch through
+    ``make_vae_epoch_fns``: one upload of the (n_steps, batch)
+    permutation, the steps as replays of a captured train and eval step
+    on a CUDA model (eagerly on the CPU), one fetch of the metric rows.
+    The batches and noise are the per-step path's (train/vae.py:254-267
+    of the JAX package), so the two give the same trajectory and
+    ``--resume`` may switch between them.  With a process group, or a
+    mesh on several devices, it says why and runs the per-step loop
+    (train/graphs.capture_refusal).
 
     Batches and noise go to the device of the model's parameters.  The
     noise of step i is the i-th draw of one ``torch.Generator`` seeded
@@ -328,6 +379,12 @@ def train_vae(
         return shard_batch(torch.randn((n * world, latent), generator=gen,
                                        device=device), group)
 
+    if epoch_scan:
+        refusal = capture_refusal(state)
+        if refusal:
+            print(f"--epoch-scan: not captured ({refusal}); running the "
+                  "per-step resident loop")
+            epoch_scan = False
     if resident:
         if not batch_size:
             raise ValueError("resident_data requires batch_size")
@@ -357,31 +414,42 @@ def train_vae(
         if nb_val:  # the plotted batch: the last full val batch
             last_val_batch = gather(
                 v_dev, np.arange((nb_val - 1) * batch_size, nb_val * batch_size))
+        if epoch_scan:
+            programs = make_vae_epoch_fns(model, unet, remat_perceptual)
+            val = (v_dev, epoch_rows(np.arange(n_val), nb_val, batch_size, device)
+                   ) if nb_val else None
 
     for epoch in range(epochs):
         t0 = time.time()
-        train_mets, val_mets = [], []
-        if resident:
+        if epoch_scan and nb_train:
             perm = np.random.default_rng((shuffle_seed, epoch)).permutation(n_train)
-            for i in range(nb_train):
-                b = gather(t_dev, perm[i * batch_size:(i + 1) * batch_size])
-                train_mets.append(train_step(state, b, noise(batch_size // world)))
-            for i in range(nb_val):
-                b = gather(v_dev, np.arange(i * batch_size, (i + 1) * batch_size))
-                val_mets.append(eval_step(state, b, noise(batch_size // world)))
+            rows = epoch_rows(perm, nb_train, batch_size, device)
+            tm, vm = run_epoch(programs, state, [(t_dev, rows), val], noise=lambda n: (
+                torch.stack([noise(batch_size) for _ in range(n)])))
+            n_steps = nb_train
         else:
-            for b in prefetch_to_device(train_batches(), device, group):
-                train_mets.append(train_step(state, b, noise(len(b["cond"]))))
-            for b in prefetch_to_device(val_batches(), device, group):
-                val_mets.append(eval_step(state, b, noise(len(b["cond"]))))
-                last_val_batch = b
-        tm = _host_metrics(train_mets)
+            train_mets, val_mets = [], []
+            if resident:
+                perm = np.random.default_rng((shuffle_seed, epoch)).permutation(n_train)
+                for i in range(nb_train):
+                    b = gather(t_dev, perm[i * batch_size:(i + 1) * batch_size])
+                    train_mets.append(train_step(state, b, noise(batch_size // world)))
+                for i in range(nb_val):
+                    b = gather(v_dev, np.arange(i * batch_size, (i + 1) * batch_size))
+                    val_mets.append(eval_step(state, b, noise(batch_size // world)))
+            else:
+                for b in prefetch_to_device(train_batches(), device, group):
+                    train_mets.append(train_step(state, b, noise(len(b["cond"]))))
+                for b in prefetch_to_device(val_batches(), device, group):
+                    val_mets.append(eval_step(state, b, noise(len(b["cond"]))))
+                    last_val_batch = b
+            tm, vm = _host_metrics(train_mets), _host_metrics(val_mets)
+            n_steps = len(train_mets)
         if not tm:
             raise ValueError(
                 "no train batches: the train split is smaller than the "
                 "batch size (remainders are dropped, vae/data.py:45 parity)"
             )
-        vm = _host_metrics(val_mets)
         if not vm:
             if epoch == 0:
                 print(
@@ -391,7 +459,6 @@ def train_vae(
                 )
             vm = tm
         epoch_time = time.time() - t0
-        n_steps = len(train_mets)
         history.append({"train": tm, "val": vm, "time": epoch_time,
                         "steps": n_steps})
         print(

@@ -898,3 +898,186 @@ def test_extract_atoms_makes_no_host_sync_on_card(cuda_device):
     assert int(cpu[2].sum()) > 0
     for c, got in zip(cpu, out):
         assert torch.allclose(c.double(), got.cpu().double(), atol=1e-5)
+
+
+# -- the resident epoch as replays of captured steps (train/graphs.py) --------
+
+EPOCH_N, EPOCH_B, EPOCH_D = 12, 4, 16  # 3 train steps and 2 val batches per epoch
+TINY_UNET = dict(num_classes=12, enc_filters=((8, 16), (16, 16), (16, 32)),
+                 bottom_filters=(32, 32), dec_filters=((32, 16), (16, 16), (16, 16)))
+
+
+def _epoch_split(n, seed):
+    """n smooth densities at EPOCH_D with lattice lengths, one-hot
+    conditions and species labels (a resident split of the trainers)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    g = np.mgrid[:EPOCH_D, :EPOCH_D, :EPOCH_D].astype(np.float32)
+    density = np.stack([
+        np.exp(-((g - rng.uniform(3, EPOCH_D - 3, 3)[:, None, None, None]) ** 2).sum(0)
+               / 6.0) for _ in range(n)]).astype(np.float32)
+    labels = np.where(density > 0.3, rng.integers(1, 12, density.shape), 0)
+    return {"density": density,
+            "abc": rng.uniform(3.0, 7.0, (n, 3)).astype(np.float32),
+            "cond": np.eye(10, dtype=np.float32)[rng.integers(0, 10, n)],
+            "labels": labels.astype(np.uint8)}
+
+
+def _epoch_models(case, device):
+    """(make state, the frozen U-Net or None, train function, its kwargs)
+    of one epoch-path case, seeded."""
+    from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
+    from icsg3d_torch.models import UNet3D
+    from icsg3d_torch.parallel.mesh import make_mesh
+    from icsg3d_torch.train import unet as tunet
+    from icsg3d_torch.train import vae as tvae
+
+    train = _epoch_split(EPOCH_N, 1)
+    val = _epoch_split(8, 2)
+    if case == "unet":
+        fields = ("density", "abc", "labels")
+        cfg = UNetConfig(**TINY_UNET)
+        return (lambda: tunet.create_unet_state(cfg, 1e-3, 0, device), tunet.train_unet,
+                dict(log_fn=lambda *_: None, class_weights=[0.0] + [1.0] * 11,
+                     resident_data=tuple({k: s[k] for k in fields} for s in (train, val))))
+    fields = ("density", "abc", "cond")
+    mesh = make_mesh(1, 2, devices=[device, device]) if case == "vae_spatial" else None
+    cfg = VAEConfig(grid=GridSpec(d=EPOCH_D), filters=(8, 16), latent_dim=8)
+    unet = UNet3D(UNetConfig(**TINY_UNET), torch.Generator().manual_seed(3)).to(device)
+    return (lambda: tvae.create_vae_state(cfg, 5e-4, 0, device, spatial_mesh=mesh),
+            tvae.train_vae,
+            dict(unet=unet, seed=5, remat_perceptual=case == "vae_remat",
+                 cache_true_features=case == "vae_cached",
+                 resident_data=tuple({k: s[k] for k in fields} for s in (train, val))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["vae", "vae_cached", "vae_remat", "vae_spatial", "unet"])
+def test_epoch_capture_matches_per_step_on_card(cuda_device, case):
+    """Two epochs of ``epoch_scan`` (a captured train and eval step,
+    replayed) against the per-step resident loop from the same seed:
+    parameters, BatchNorm buffers, Adam's moments and step, and every
+    metric bitwise equal, except the U-Net's per-class CE sums, which
+    ``index_add_`` accumulates with float atomics in no fixed order (1e-5
+    relative).  The kernels the card ran on the captured path (eager
+    launches, plus each capture's recorded launches times its replays) are
+    the per-step path's."""
+    import numpy as np
+
+    from icsg3d_torch.train import graphs
+
+    make_state, train, kw = _epoch_models(case, cuda_device)
+    runs = []
+    for scan in (False, True):
+        state = make_state()
+        graphs.reset_captures()
+        k.reset_launches()
+        kdw.reset_launches()
+        _, hist = train(state.model, state, None, None, 2, batch_size=EPOCH_B,
+                        shuffle_seed=3, epoch_scan=scan, **kw)
+        torch.cuda.synchronize()
+        counts = graphs.launch_counts()
+        for c in graphs.captures:
+            for key, n in c.launches.items():
+                counts[key] += n * (c.replays - 1)
+        runs.append((hist, state.arrays(), counts, list(graphs.captures)))
+    (h0, a0, c0, _), (h1, a1, c1, caps) = runs
+    assert [c.name.split("_")[1] for c in caps] == ["train", "eval"]
+    assert [c.replays for c in caps] == [2 * 3 - 1, 2 * 2 - 1]  # one warm-up step each
+    assert c1 == c0 and c0["conv3d"] > 0
+    assert a0.keys() == a1.keys()
+    for key in a0:
+        np.testing.assert_array_equal(a0[key], a1[key], err_msg=key)
+    for e0, e1 in zip(h0, h1):
+        for split in ("train", "val"):
+            for key, v in e0[split].items():
+                if key == "ce_per_class":
+                    np.testing.assert_allclose(e1[split][key], v, rtol=1e-5, err_msg=key)
+                else:
+                    assert e1[split][key] == v, (split, key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["vae", "unet"])
+def test_captured_epoch_makes_no_host_sync_on_card(cuda_device, model):
+    """After the epoch that captures, an epoch's replays (with the noise
+    draws and the buffers' device copies) run under sync-debug mode
+    "error" and return while a long kernel queued before them still runs;
+    the one fetch afterwards holds every step's finite metrics."""
+    from icsg3d_torch.train import graphs
+    from icsg3d_torch.train import unet as tunet
+    from icsg3d_torch.train import vae as tvae
+
+    make_state, _, kw = _epoch_models(model, cuda_device)
+    state = make_state()
+    data = {k: torch.from_numpy(v).to(cuda_device) for k, v in kw["resident_data"][0].items()}
+    if model == "unet":
+        train_epoch, _ = tunet.make_unet_epoch_fns(state.model)
+    else:
+        train_epoch, _ = tvae.make_vae_epoch_fns(state.model, kw["unet"])
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def noise():
+        if model == "unet":
+            return None
+        return torch.stack([torch.randn((EPOCH_B, 8), generator=gen, device=cuda_device)
+                            for _ in range(EPOCH_N // EPOCH_B)])
+
+    def rows(epoch):
+        import numpy as np
+
+        perm = np.random.default_rng((3, epoch)).permutation(EPOCH_N)
+        return torch.from_numpy(perm.reshape(-1, EPOCH_B)).to(cuda_device)
+
+    train_epoch(state, data, rows(0), noise())  # warm-up step, capture, replays
+    torch.cuda.synchronize()
+    assert train_epoch.graph is not None
+    replays = train_epoch.capture.replays
+    perm = rows(1)  # the epoch's one upload
+    done = torch.cuda.Event()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(2_000_000_000)  # ~1 s of device time at H100 clocks
+        buf = train_epoch(state, data, perm, noise())
+        done.record()
+        still_running = not done.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fetched = buf.cpu()  # the epoch's one fetch
+    assert still_running
+    assert train_epoch.capture.replays == replays + EPOCH_N // EPOCH_B
+    assert state.step == 2 * EPOCH_N // EPOCH_B
+    assert fetched.shape[0] == EPOCH_N // EPOCH_B and bool(torch.isfinite(fetched).all())
+    assert graphs.capture_refusal(state) is None
+
+
+@pytest.mark.cuda
+def test_load_arrays_puts_adam_step_on_the_parameters_device(cuda_device):
+    """Adam is capturable on the card; a state restored by ``load_arrays``
+    keeps its step count on the parameters' device and takes the next
+    update exactly as the state it was saved from."""
+    import numpy as np
+
+    from icsg3d_torch.train import vae as tvae
+
+    make_state, _, kw = _epoch_models("vae", cuda_device)
+    split = {k: torch.from_numpy(v[:EPOCH_B]).to(cuda_device)
+             for k, v in kw["resident_data"][0].items()}
+    eps = torch.randn((EPOCH_B, 8), generator=torch.Generator().manual_seed(1)).to(
+        cuda_device)
+    state = make_state()
+    assert state.optimizer.param_groups[0]["capturable"]
+    step, _ = tvae.make_vae_steps(state.model, kw["unet"])
+    step(state, split, eps)
+    restored = make_state()
+    restored.load_arrays(state.arrays())
+    for p in restored.model.parameters():
+        st = restored.optimizer.state[p]
+        assert st["step"].device == p.device and float(st["step"]) == 1.0
+    step(state, split, eps)
+    step(restored, split, eps)
+    torch.cuda.synchronize()
+    a, b = state.arrays(), restored.arrays()
+    for key in a:
+        np.testing.assert_array_equal(a[key], b[key], err_msg=key)

@@ -294,9 +294,10 @@ def test_cli_trains_resumes_and_feeds_generate(tmp_path, capsys):
 
 
 def test_cli_epoch_scan_with_feature_cache_matches_resident(tmp_path):
-    """--epoch-scan runs the resident per-step loop (same batches, same
-    noise) and --cache-true-features replaces only the true-side U-Net
-    forward: the losses equal plain --resident's."""
+    """--epoch-scan runs the epoch programs (train/graphs.py: eagerly on the
+    CPU, over the same batches and noise as the per-step loop) and
+    --cache-true-features replaces only the true-side U-Net forward: the
+    losses equal plain --resident's."""
     data = _write_dataset(tmp_path / "data")
     unet = tmp_path / "unet.npz"
     weights.save_npz(str(unet), weights.to_flax_variables(

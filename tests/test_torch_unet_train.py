@@ -266,6 +266,8 @@ def test_train_unet_no_class_weights(ws, dataset):
 
 
 def test_train_unet_epoch_scan_matches_resident(ws, dataset):
+    """--epoch-scan runs the epoch programs (train/graphs.py: eagerly on the
+    CPU, over the per-step loop's batches): the metrics equal --resident's."""
     base = ["--data", dataset, "--epochs", "1", "--resident", "--ship-dtype",
             "float16"] + CLI
     plain = tapp.main(base + ["--ckpt", str(ws / "res")])
