@@ -229,6 +229,27 @@ Phases (any failure exits nonzero, before the result line):
    epoch; then the gradient buffer's bytes, the gradient all-reduce's
    CUDA-event ms and the train step's ms beside the same step without a
    process group.
+26a. The captured epoch under a process group (``[dp-nccl-epoch-scan]``):
+   this script as a rank worker under torchrun with one NCCL rank, running
+   phase 16a's ``apps.train_vae.main`` at batch 20 (with and without
+   ``--cache-true-features``) and ``apps.train_unet.main`` at batch 10,
+   ``--resident --epoch-scan`` and ``--resident``, 2 epochs each: no
+   ``--epoch-scan: not captured`` line; each run's latest.npz and history
+   bitwise those of its per-step twin and of phase 16a's single-process
+   captured run (the U-Net's CE sums within 1e-5); launches (captured x
+   replays) those of the per-step run and of phase 16a.  Then on the rank,
+   on one state each for the VAE at batch 20 and the U-Net at batch 10,
+   in turns and then profiled: the epoch wall, steps/s and idle share of
+   the per-step epoch in the group, the captured epoch in the group (its
+   all-reduces inside the graph) and a captured epoch with the group
+   taken off, with the NCCL kernels of each profiled epoch (at world 1
+   NCCL may launch none); a captured epoch under sync-debug mode "error"
+   returns while a kernel queued before it still runs.  Where two cards
+   are visible, the VAE and the U-Net on two NCCL ranks, one per card, at
+   ``DP_LR``: captured vs per-step bitwise, the ranks' histories and
+   BatchNorm statistics equal, within 2e-2 of a single-process captured
+   run at the same global batch; with one card a line says why that check
+   did not run.
 27. Two ranks on cuda:0 over gloo (``[dp-gloo]``; NCCL refuses two ranks
    on one card): ``train_vae`` (batch 20, 10 rows per rank),
    ``train_unet`` (10, 5) and ``train_cgcnn`` (32, 16), one epoch each,
@@ -253,6 +274,10 @@ Phases (any failure exits nonzero, before the result line):
    0.95, the card-vs-CPU standard of phases 8 and 13, and the step's and
    the gradient all-reduce's times.  Two processes share the card and
    gloo goes through the host: the times are not a data-parallel rate.
+   Last, ``train_vae --resident --epoch-scan`` in float32 on the two
+   ranks: each prints the refusal of a gloo group on a CUDA model (gloo
+   moves CUDA tensors through host memory) and gives ``--resident``'s
+   history, launches and latest.npz bitwise.
 28. The build in parts (``[dp-voxelize]``): ``apps.voxelize --synthetic
    300`` on two gloo ranks on cuda:0, rank k writing ``part-<k>/``;
    ``merge_parts`` equals phase 10's single-process build bitwise in
@@ -266,7 +291,7 @@ every ``--fused`` generation: phase 4's, the trained checkpoints' of
 phases 6 and 11 and ``--cgcnn-ckpt``'s) and then ``{"ok": true,
 "device": {...}}``; the kernels' launches count generation with
 ``--cgcnn-ckpt``, evaluate, interpolate, view, the plots phase's
-trainers, the data-parallel ranks and phase 16a's runs (captured
+trainers, the data-parallel ranks and the runs of phases 16a and 26a (captured
 launches times replays) too.
 """
 
@@ -274,6 +299,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import json
 import os
 import statistics
@@ -2196,24 +2222,26 @@ def _same_training(label: str, runs: list) -> str:
             f"bitwise but ce_per_class (index_add_ atomics) rel {worst:.3e}")
 
 
-def epoch_profile(label: str, step_fn, epoch_fn, n_steps: int, card: str):
-    """One per-step and one captured train epoch of ``n_steps`` after the
-    runs that warm and capture them: the unprofiled wall ms of each (in
-    turns: per-step, captured, captured, per-step), then one profiled
-    epoch of each: device busy ms and the idle share against the
-    unprofiled wall, kernels per step, and the host's launch and copy calls
-    per step (graph launches apart)."""
+def epoch_profile(label: str, fns: list, n_steps: int, card: str,
+                  tag: str = "epoch-scan-profile") -> dict:
+    """Train epochs of ``n_steps`` of each named path in ``fns`` ([(name,
+    fn)]; a name starting with "captured" replays a captured step) after
+    the runs that warm and capture them: the unprofiled wall ms of each (in
+    turns: the list, then the list reversed), then one profiled epoch of
+    each: device busy ms and the idle share against the unprofiled wall,
+    kernels per step (NCCL's apart), and the host's launch and copy calls
+    per step (graph launches apart).  Prints a line per path; returns
+    {name: its numbers}."""
     import re
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for fn in (step_fn, epoch_fn):  # warm: the capture, the first launches
+    for _, fn in fns:  # warm: the capture, the first launches
         fn()
         sync()
-    walls = {"per-step": [], "captured": []}
-    for name, fn in (("per-step", step_fn), ("captured", epoch_fn),
-                     ("captured", epoch_fn), ("per-step", step_fn)):
+    walls = {name: [] for name, _ in fns}
+    for name, fn in fns + fns[::-1]:
         sync()
         t0 = time.perf_counter()
         fn()
@@ -2221,7 +2249,7 @@ def epoch_profile(label: str, step_fn, epoch_fn, n_steps: int, card: str):
         walls[name].append((time.perf_counter() - t0) * 1e3)
     host = re.compile(r"^cu(da)?(LaunchKernel|GraphLaunch|Memcpy|Memset|LaunchCooperative)")
     out = {}
-    for name, fn in (("per-step", step_fn), ("captured", epoch_fn)):
+    for name, fn in fns:
         sync()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
@@ -2235,46 +2263,111 @@ def epoch_profile(label: str, step_fn, epoch_fn, n_steps: int, card: str):
         wall = statistics.median(walls[name])
         kernels = [e for e in dev if "memcpy" not in e.name.lower()
                    and "memset" not in e.name.lower()]
-        out[name] = {"wall_ms": wall, "busy_ms": busy, "idle": max(0.0, 1 - busy / wall),
+        nccl = sorted({e.name for e in kernels if "nccl" in e.name.lower()})
+        names = {}
+        for e in dev:
+            names[e.name] = names.get(e.name, 0) + 1
+        out[name] = {"names": names, "wall_ms": wall, "walls": walls[name], "busy_ms": busy,
+                     "idle": max(0.0, 1 - busy / wall),
+                     "steps_per_s": n_steps / wall * 1e3,
                      "kernels_per_step": len(kernels) / n_steps,
+                     "nccl_per_step": sum("nccl" in e.name.lower() for e in kernels) / n_steps,
+                     "nccl_kernels": nccl,
+                     "copies_per_step": (len(dev) - len(kernels)) / n_steps,
                      "host_calls_per_step": len(calls) / n_steps,
                      "graph_launches": sum("GraphLaunch" in c for c in calls)}
         check(len(kernels) > 0, f"{label} {name}: the profiled epoch recorded no kernel")
     for name, r in out.items():
-        print(f"[epoch-scan-profile] {label}, one train epoch of {n_steps} steps, {name} "
-              f"({card}): wall {r['wall_ms']:.3f} ms (median of {walls[name]}), "
-              f"{n_steps / r['wall_ms'] * 1e3:.2f} steps/s; profiled device busy "
+        print(f"[{tag}] {label}, one train epoch of {n_steps} steps, {name} "
+              f"({card}): wall {r['wall_ms']:.3f} ms (median of {r['walls']}), "
+              f"{r['steps_per_s']:.2f} steps/s; profiled device busy "
               f"{r['busy_ms']:.3f} ms, idle share {r['idle']:.3f}; per step "
-              f"{r['kernels_per_step']:.1f} kernels, {r['host_calls_per_step']:.2f} host "
-              f"launch/copy calls ({r['graph_launches']} graph launches in the epoch)")
-    check(out["captured"]["graph_launches"] == n_steps,
-          f"{label}: {out['captured']['graph_launches']} graph launches, want {n_steps}")
+              f"{r['kernels_per_step']:.1f} kernels ({r['nccl_per_step']:.1f} of NCCL), "
+              f"{r['copies_per_step']:.2f} device copies, {r['host_calls_per_step']:.2f} host "
+              f"launch/copy calls ({r['graph_launches']} graph launches in the epoch)",
+              flush=True)
+        if name.startswith("captured"):
+            check(r["graph_launches"] == n_steps,
+                  f"{label} {name}: {r['graph_launches']} graph launches, want {n_steps}")
+    return out
+
+
+def epoch_scan_cases(tmp: str, synthetic: str) -> dict:
+    """{label: (app name, argv without --ckpt and --epoch-scan)} of the
+    trainer runs of phases 16a and 26a at production width: the VAE at
+    batch 20 on the epoch split (300 parents), with and without
+    ``--cache-true-features``, and the U-Net at batch 10 on the synthetic
+    build, 2 epochs each."""
+    unet_npz = os.path.join(tmp, "unet.npz")
+    common_argv = ["--epochs", str(EPOCH_SCAN_EPOCHS), "--nrot", "0", "--resident",
+                   "--seed", str(SEED), "--device", DEVICE]
+    vae = ["--data", os.path.join(tmp, "epoch-data"), "--unet-ckpt", unet_npz,
+           "--batch-size", str(BATCH)] + common_argv
+    return {
+        "train_vae": ("train_vae", vae),
+        "train_vae --cache-true-features": ("train_vae", vae + ["--cache-true-features"]),
+        "train_unet": ("train_unet", ["--data", synthetic, "--batch-size",
+                                      str(UNET_BATCH)] + common_argv),
+    }
+
+
+def vae_epoch_data(tmp: str):
+    """The VAE profiles' split on the card: the epoch split's train rows,
+    cyclic condition bins.  Returns (data, its row count)."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.data.store import GridDataset
+
+    ds = GridDataset(os.path.join(tmp, "epoch-data"))
+    n = int(0.8 * EPOCH_PARENTS) // BATCH * BATCH
+    cond = np.eye(10, dtype=np.float32)[np.arange(n) % 10]
+    return {"density": torch.from_numpy(np.array(ds.arrays["density"][:n],
+                                                 np.float16)).to(DEVICE),
+            "abc": torch.from_numpy(np.array(ds.arrays["lattice"][:n, :3],
+                                             np.float32)).to(DEVICE),
+            "cond": torch.from_numpy(cond).to(DEVICE)}, n
+
+
+def unet_epoch_data(synthetic: str):
+    """The U-Net profiles' split on the card: the synthetic build's train
+    rows.  Returns (data, its row count)."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.data.store import GridDataset
+
+    uds = GridDataset(synthetic)
+    n = int(0.8 * UNET_PARENTS) // UNET_BATCH * UNET_BATCH
+    return {"density": torch.from_numpy(np.array(uds.arrays["density"][:n],
+                                                 np.float16)).to(DEVICE),
+            "abc": torch.from_numpy(np.array(uds.arrays["lattice"][:n, :3],
+                                             np.float32)).to(DEVICE),
+            "labels": torch.from_numpy(np.minimum(np.asarray(
+                uds.arrays["species"][:n]), 94).astype(np.uint8)).to(DEVICE)}, n
 
 
 def phase_epoch_scan(tmp: str, synthetic: str, card: str):
     """``--resident --epoch-scan`` (the epoch as replays of a captured train
     and eval step) against ``--resident``'s per-step loop of the same seed,
     at production width, bitwise; then a profiled epoch of each path.
-    Returns the CLI runs' summed launches (captured launches x replays)."""
+    Returns the CLI runs' summed launches (captured launches x replays) and
+    {label: the captured run's checkpoint, history and launches} of the
+    ``epoch_scan_cases``."""
     import numpy as np
     import torch
 
     from icsg3d_torch.apps import common, train_unet, train_vae
     from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
-    from icsg3d_torch.data.store import GridDataset
     from icsg3d_torch.train import unet as tunet
     from icsg3d_torch.train import vae as tvae
 
-    data = os.path.join(tmp, "epoch-data")
-    write_train_dataset(data, EPOCH_PARENTS)
+    write_train_dataset(os.path.join(tmp, "epoch-data"), EPOCH_PARENTS)
     unet_npz = os.path.join(tmp, "unet.npz")
-    vae_base = ["--data", data, "--unet-ckpt", unet_npz, "--batch-size", str(BATCH)]
     small = ["--data", os.path.join(tmp, "train-data"), "--unet-ckpt", unet_npz,
              "--batch-size", str(BATCH), "--device", SPATIAL_DEVICES, "--spatial",
-             str(SPATIAL)]
-    common_argv = ["--epochs", str(EPOCH_SCAN_EPOCHS), "--nrot", "0", "--resident",
-                   "--seed", str(SEED)]
-    unet_base = ["--data", synthetic, "--batch-size", str(UNET_BATCH)]
+             str(SPATIAL), "--epochs", str(EPOCH_SCAN_EPOCHS), "--nrot", "0",
+             "--resident", "--seed", str(SEED)]
     E = EPOCH_SCAN_EPOCHS
 
     def steps(parents, batch):
@@ -2298,21 +2391,23 @@ def phase_epoch_scan(tmp: str, synthetic: str, card: str):
                  "folded": E * v * n, "dx": E * t * (n - 1), "dw": E * t * n}
     spatial_want = {key: E * c for key, c in
                     _steps_counts("vae", *steps(TRAIN_PARENTS, BATCH)).items()}
+    shared = epoch_scan_cases(tmp, synthetic)
+    apps = {"train_vae": train_vae, "train_unet": train_unet}
     cases = [  # (label, app, argv, per-step/captured turns, launches)
-        ("train_vae", train_vae, vae_base + ["--device", DEVICE], (0, 1, 1, 0),
-         vae_want(False)),
-        ("train_vae --cache-true-features", train_vae,
-         vae_base + ["--device", DEVICE, "--cache-true-features"], (0, 1), vae_want(True)),
-        ("train_unet", train_unet, unet_base + ["--device", DEVICE], (0, 1, 1, 0),
-         unet_want),
-        (f"train_vae --spatial {SPATIAL}", train_vae, small, (0, 1), spatial_want),
+        ("train_vae", (0, 1, 1, 0), vae_want(False)),
+        ("train_vae --cache-true-features", (0, 1), vae_want(True)),
+        ("train_unet", (0, 1, 1, 0), unet_want),
     ]
-    total = dict(NO_LAUNCHES)
+    cases = [(label, apps[shared[label][0]], shared[label][1], turns, want)
+             for label, turns, want in cases]
+    cases.append((f"train_vae --spatial {SPATIAL}", train_vae, small, (0, 1),
+                  spatial_want))
+    total, captured_runs = dict(NO_LAUNCHES), {}
     for i, (label, app, argv, turns, want) in enumerate(cases):
         runs, times, counts, captured = [], [], {}, None
         for j, scan in enumerate(turns):
             ckpt = os.path.join(tmp, f"epoch-scan-{i}-{j}")
-            hist, got, caps, secs = _epoch_scan_run(app, argv + common_argv, ckpt, scan)
+            hist, got, caps, secs = _epoch_scan_run(app, argv, ckpt, scan)
             check(len(hist) == EPOCH_SCAN_EPOCHS and all(
                 np.isfinite(h["train"]["loss"]) for h in hist),
                 f"{label}: history {hist}")
@@ -2328,6 +2423,8 @@ def phase_epoch_scan(tmp: str, synthetic: str, card: str):
                 check(caps and caps[0][1] == EPOCH_SCAN_EPOCHS * steps - 1,
                       f"{label}: captures {caps}, want {EPOCH_SCAN_EPOCHS * steps - 1} "
                       "train replays (one warm-up step)")
+                captured_runs.setdefault(label, {"ckpt": ckpt, "history": hist,
+                                                 "launches": got, "captures": caps})
         check(counts[0] == want, f"{label}: the per-step path launched {counts[0]}, "
               f"want {want}")
         check(counts[1] == counts[0], f"{label}: the captured path launched "
@@ -2345,51 +2442,43 @@ def phase_epoch_scan(tmp: str, synthetic: str, card: str):
     # epoch split's train rows, the U-Net at batch 10 on the synthetic build
     unet = common.load_unet(UNetConfig(num_classes=95), unet_npz, grid_d=D,
                             device=DEVICE)
-    ds = GridDataset(data)
-    n = int(0.8 * EPOCH_PARENTS) // BATCH * BATCH
-    cond = np.eye(10, dtype=np.float32)[np.arange(n) % 10]
-    vae_data = {"density": torch.from_numpy(np.array(ds.arrays["density"][:n],
-                                                     np.float16)).to(DEVICE),
-                "abc": torch.from_numpy(np.array(ds.arrays["lattice"][:n, :3],
-                                                 np.float32)).to(DEVICE),
-                "cond": torch.from_numpy(cond).to(DEVICE)}
+    vae_data, n = vae_epoch_data(tmp)
     state = tvae.create_vae_state(VAEConfig(grid=GridSpec(d=D)), 5e-4, SEED, DEVICE)
     train_step, _ = tvae.make_vae_steps(state.model, unet)
     train_epoch, _ = tvae.make_vae_epoch_fns(state.model, unet)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    epoch_profile(
-        f"VAE at batch {BATCH}",
-        lambda: _per_step_epoch(state, vae_data, n // BATCH, BATCH,
-                                lambda s, b: train_step(s, b, _noise(gen)), _perm_rows),
-        lambda: _captured_epoch(state, vae_data, n // BATCH, BATCH, train_epoch,
-                                lambda: torch.stack([_noise(gen) for _ in range(n // BATCH)])),
+    epoch_profile(f"VAE at batch {BATCH}", [
+        ("per-step", lambda: _per_step_epoch(state, vae_data, n // BATCH, BATCH,
+                                             lambda s, b: train_step(s, b, _noise(gen)),
+                                             _perm_rows)),
+        ("captured", lambda: _captured_epoch(state, vae_data, n // BATCH, BATCH,
+                                             train_epoch, _noises(gen, n // BATCH)))],
         n // BATCH, card)
     del state, train_epoch, vae_data
-    uds = GridDataset(synthetic)
-    n = int(0.8 * UNET_PARENTS) // UNET_BATCH * UNET_BATCH
-    unet_data = {"density": torch.from_numpy(np.array(uds.arrays["density"][:n],
-                                                      np.float16)).to(DEVICE),
-                 "abc": torch.from_numpy(np.array(uds.arrays["lattice"][:n, :3],
-                                                  np.float32)).to(DEVICE),
-                 "labels": torch.from_numpy(np.minimum(np.asarray(
-                     uds.arrays["species"][:n]), 94).astype(np.uint8)).to(DEVICE)}
+    unet_data, n = unet_epoch_data(synthetic)
     ustate = tunet.create_unet_state(UNetConfig(num_classes=95), 3e-6, SEED, DEVICE)
     utrain, _ = tunet.make_unet_steps(ustate.model)
     uepoch, _ = tunet.make_unet_epoch_fns(ustate.model)
-    epoch_profile(
-        f"U-Net at batch {UNET_BATCH}",
-        lambda: _per_step_epoch(ustate, unet_data, n // UNET_BATCH, UNET_BATCH, utrain,
-                                _perm_rows),
-        lambda: _captured_epoch(ustate, unet_data, n // UNET_BATCH, UNET_BATCH, uepoch,
-                                lambda: None),
+    epoch_profile(f"U-Net at batch {UNET_BATCH}", [
+        ("per-step", lambda: _per_step_epoch(ustate, unet_data, n // UNET_BATCH,
+                                             UNET_BATCH, utrain, _perm_rows)),
+        ("captured", lambda: _captured_epoch(ustate, unet_data, n // UNET_BATCH,
+                                             UNET_BATCH, uepoch, lambda: None))],
         n // UNET_BATCH, card)
-    return total
+    return total, captured_runs
 
 
 def _noise(gen):
     import torch
 
     return torch.randn((BATCH, 256), generator=gen, device=DEVICE)
+
+
+def _noises(gen, n_steps: int):
+    """A captured epoch's noise: ``n_steps`` draws of ``_noise``, stacked."""
+    import torch
+
+    return lambda: torch.stack([_noise(gen) for _ in range(n_steps)])
 
 
 def _perm_rows(n_steps: int, batch: int):
@@ -3145,7 +3234,7 @@ def phase_profiling(tmp: str, synthetic: str, card: str):
 
 DP_RANKS = 2  # the gloo phases: two ranks on cuda:0
 DP_LAUNCH_TIMEOUT_S = 300
-DP_ONE_BACKEND = "nccl"  # the one-rank phase's backend
+DP_ONE_BACKEND = "nccl"  # the backend of the phases with a rank per card
 # phase 27's trainer runs: Adam moves every weight by ~lr whatever its
 # gradient, so a last-bit difference in a near-zero gradient (another
 # summation order) flips a step's sign; these small rates keep such flips
@@ -3265,6 +3354,18 @@ def dp_step_models(model: str, job: dict, device, group):
         job["synthetic"], device),)
 
 
+class _Tee(io.StringIO):
+    """A text buffer that also writes through to ``stream``."""
+
+    def __init__(self, stream):
+        super().__init__()
+        self.stream = stream
+
+    def write(self, text):
+        self.stream.write(text)
+        return super().write(text)
+
+
 def dp_job_cli(job: dict, arrays: dict) -> dict:
     """One CLI run on this rank (computing in ``job["dtype"]`` where given,
     ``f32_cli``): its history (or dataset size), launches, wall seconds,
@@ -3273,6 +3374,7 @@ def dp_job_cli(job: dict, arrays: dict) -> dict:
     import builtins
     import importlib
 
+    from icsg3d_torch.train import graphs
     from icsg3d_torch.train.checkpoints import CheckpointManager
 
     app = importlib.import_module(f"icsg3d_torch.apps.{job['app']}")
@@ -3301,16 +3403,22 @@ def dp_job_cli(job: dict, arrays: dict) -> dict:
 
     builtins.open, os.makedirs = logged_open, logged_makedirs
     CheckpointManager.save_epoch = keep_state
+    printed = _Tee(sys.stdout)
     try:
-        with plots_off(), f32_cli(job.get("dtype") == "float32"):
+        with plots_off(), f32_cli(job.get("dtype") == "float32"), \
+                contextlib.redirect_stdout(printed):
             sync()
             reset_counts()
+            graphs.reset_captures()
             result, secs = _seconds(app.main, job["argv"])
-            counts = read_counts()
+            counts = captured_counts()
     finally:
         builtins.open, os.makedirs = real_open, real_makedirs
         CheckpointManager.save_epoch = save_epoch
-    out = {"counts": counts, "seconds": secs, "writes": writes}
+    out = {"counts": counts, "seconds": secs, "writes": writes,
+           "captures": [(c.name, c.replays) for c in graphs.captures],
+           "refusals": [ln for ln in printed.getvalue().splitlines()
+                        if ln.startswith("--epoch-scan")]}
     if isinstance(result, list):
         out["history"] = result
     else:
@@ -3385,6 +3493,97 @@ def dp_job_step(job: dict, arrays: dict) -> dict:
     return out
 
 
+def dp_job_epoch_profile(job: dict, arrays: dict) -> dict:
+    """On this rank (one NCCL rank on its card): for the VAE at batch 20
+    and the U-Net at batch 10, a train state in the process group and on
+    it, in turns and then profiled (``epoch_profile``), a per-step epoch,
+    a captured epoch (its all-reduces inside the graph) and a captured
+    epoch with the group taken off the state and the model (a graph of
+    its own, no collective).  Then the group's captured VAE epoch once
+    more under sync-debug mode "error", behind a long kernel that must
+    still run when its replays return."""
+    import torch
+
+    from icsg3d_torch.apps import common
+    from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
+    from icsg3d_torch.parallel import distributed
+    from icsg3d_torch.train import unet as tunet
+    from icsg3d_torch.train import vae as tvae
+
+    if DEVICE == "cuda":
+        torch.cuda.set_device(distributed.local_rank())
+    group = distributed.initialize(backend=job["backend"])
+    card = job["card"]
+
+    def no_group(state, fn):
+        def run():
+            state.group = state.model.group = None
+            try:
+                return fn()
+            finally:
+                state.group = state.model.group = group
+        return run
+
+    out = {"blocking_wait": os.environ.get("TORCH_NCCL_BLOCKING_WAIT")}
+    unet = common.load_unet(UNetConfig(num_classes=95), job["unet"], grid_d=D,
+                            device=DEVICE)
+    data, n = vae_epoch_data(job["tmp"])
+    steps = n // BATCH
+    state = tvae.create_vae_state(VAEConfig(grid=GridSpec(d=D)), 5e-4, SEED, DEVICE,
+                                  group=group)
+    train_step, _ = tvae.make_vae_steps(state.model, unet)
+    epoch, _ = tvae.make_vae_epoch_fns(state.model, unet)
+    plain, _ = tvae.make_vae_epoch_fns(state.model, unet)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    out["vae"] = epoch_profile(f"VAE at batch {BATCH}", [
+        ("per-step, group", lambda: _per_step_epoch(
+            state, data, steps, BATCH, lambda s, b: train_step(s, b, _noise(gen)),
+            _perm_rows)),
+        ("captured, group", lambda: _captured_epoch(state, data, steps, BATCH, epoch,
+                                                    _noises(gen, steps))),
+        ("captured, no group", no_group(state, lambda: _captured_epoch(
+            state, data, steps, BATCH, plain, _noises(gen, steps))))],
+        steps, card, tag="dp-nccl-epoch-scan-profile")
+
+    # no host sync between the epoch's upload and its fetch
+    rows = torch.from_numpy(_perm_rows(steps, BATCH)).to(DEVICE)
+    noise = _noises(gen, steps)()
+    replays = epoch.capture.replays
+    done = torch.cuda.Event()
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(2_000_000_000)  # ~1 s of device time
+        buf = epoch(state, data, rows, noise)
+        done.record()
+        running = not done.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fetched = buf.cpu()
+    out["sync"] = {"still_running": running, "replays": epoch.capture.replays - replays,
+                   "finite": bool(torch.isfinite(fetched).all())}
+    del state, epoch, plain, data, unet
+
+    data, n = unet_epoch_data(job["synthetic"])
+    steps = n // UNET_BATCH
+    ustate = tunet.create_unet_state(UNetConfig(num_classes=95), 3e-6, SEED, DEVICE,
+                                     group=group)
+    utrain, _ = tunet.make_unet_steps(ustate.model)
+    uepoch, _ = tunet.make_unet_epoch_fns(ustate.model)
+    uplain, _ = tunet.make_unet_epoch_fns(ustate.model)
+    out["unet"] = epoch_profile(f"U-Net at batch {UNET_BATCH}", [
+        ("per-step, group", lambda: _per_step_epoch(ustate, data, steps, UNET_BATCH,
+                                                    utrain, _perm_rows)),
+        ("captured, group", lambda: _captured_epoch(ustate, data, steps, UNET_BATCH,
+                                                    uepoch, lambda: None)),
+        ("captured, no group", no_group(ustate, lambda: _captured_epoch(
+            ustate, data, steps, UNET_BATCH, uplain, lambda: None)))],
+        steps, card, tag="dp-nccl-epoch-scan-profile")
+    del ustate, uepoch, uplain, data
+    torch.cuda.empty_cache()
+    return out
+
+
 def dp_worker(spec_path: str) -> None:
     """A rank of ``torchrun``: runs the spec's jobs, writes the results."""
     import numpy as np
@@ -3396,7 +3595,8 @@ def dp_worker(spec_path: str) -> None:
     rank = int(os.environ["RANK"])
     arrays, results = {}, []
     for job in spec["jobs"]:
-        run = {"cli": dp_job_cli, "step": dp_job_step}[job["kind"]]
+        run = {"cli": dp_job_cli, "step": dp_job_step,
+               "epoch_profile": dp_job_epoch_profile}[job["kind"]]
         results.append(run(job, arrays))
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump({"rank": rank, "world": distributed.process_count(),
@@ -3501,6 +3701,190 @@ def phase_dp_nccl(tmp: str, synthetic: str, card: str):
     return cli["counts"]
 
 
+def _op_name(name: str) -> str:
+    """A device op's profiler name, short: a torch kernel's functor or
+    kernel, a copy's own name."""
+    import re
+
+    functors = re.findall(r"(\w+Functor)\b", name)
+    if functors:
+        return functors[-1]
+    m = re.search(r"native::(?:\(anonymous namespace\)::)?(\w+)", name)
+    return m.group(1) if m else name
+
+
+def _timeless(history: list) -> list:
+    return [{k: v for k, v in h.items() if k != "time"} for h in history]
+
+
+def _profile_note(label: str, runs: dict) -> str:
+    return f"{label}: " + "; ".join(
+        f"{name} {r['wall_ms']:.3f} ms ({r['steps_per_s']:.2f} steps/s, idle "
+        f"{r['idle']:.3f}, {r['nccl_per_step']:.1f} NCCL kernels a step "
+        f"{r['nccl_kernels']})" for name, r in runs.items())
+
+
+def phase_dp_nccl_epoch_scan(tmp: str, synthetic: str, card: str, single: dict):
+    """``--resident --epoch-scan`` under torchrun on one NCCL rank: the
+    three ``epoch_scan_cases`` (the VAE at batch 20 with and without
+    ``--cache-true-features``, the U-Net at batch 10, 2 epochs) against the
+    same rank's ``--resident`` per-step runs and phase 16a's
+    single-process captured runs (``single``): latest.npz and history
+    bitwise (the U-Net's CE sums within 1e-5), no refusal line, launches
+    as captured x replays equal to the per-step path's and to phase 16a's.
+    Then on the rank (``dp_job_epoch_profile``) the wall, steps/s and idle
+    share of the per-step, the captured and the no-group captured epoch
+    in turns on one state, the NCCL kernels of a profiled captured epoch,
+    and no host sync in a captured epoch.  Then the two-card check.
+    Returns the rank's launches."""
+    cases = epoch_scan_cases(tmp, synthetic)
+    jobs = []
+    for i, (label, (app, argv)) in enumerate(cases.items()):
+        for scan in (0, 1):
+            ckpt = os.path.join(tmp, f"dp-nccl-epoch-{i}-{scan}")
+            jobs.append({"kind": "cli", "app": app, "watch": ckpt,
+                         "argv": argv + ["--dist-backend", DP_ONE_BACKEND, "--ckpt", ckpt]
+                         + (["--epoch-scan"] if scan else [])})
+    jobs.append({"kind": "epoch_profile", "backend": DP_ONE_BACKEND, "tmp": tmp,
+                 "synthetic": synthetic, "card": card,
+                 "unet": os.path.join(tmp, "unet.npz")})
+    (rank,), _, secs = torchrun(1, jobs, tmp, "dp-nccl-epoch-scan")
+    check(rank["world"] == 1, f"dp-nccl-epoch-scan: world {rank['world']}")
+    total = dict(NO_LAUNCHES)
+    for i, label in enumerate(cases):
+        per, cap = rank["jobs"][2 * i], rank["jobs"][2 * i + 1]
+        ref = single[label]
+        check(not per["refusals"] and not cap["refusals"],
+              f"{label}: {per['refusals'] + cap['refusals']}")
+        steps = cap["history"][0]["steps"]
+        check(not per["captures"] and cap["captures"]
+              and cap["captures"][0][1] == EPOCH_SCAN_EPOCHS * steps - 1,
+              f"{label}: captures {per['captures']} / {cap['captures']}")
+        check(per["counts"] == ref["launches"] and cap["counts"] == per["counts"],
+              f"{label}: launches per-step {per['counts']}, captured {cap['counts']}, "
+              f"phase 16a {ref['launches']}")
+        seen = _same_training(f"dp-nccl {label}", [
+            (ref["ckpt"], ref["history"]), (jobs[2 * i]["watch"], per["history"]),
+            (jobs[2 * i + 1]["watch"], cap["history"])])
+        total = {key: total[key] + per["counts"][key] + cap["counts"][key]
+                 for key in total}
+        print(f"[dp-nccl-epoch-scan] {label} under torchrun, 1 rank over NCCL, "
+              f"--resident --epoch-scan and --resident, {EPOCH_SCAN_EPOCHS} epochs of "
+              f"{steps} steps ({card}): no refusal line; both {seen} to the "
+              f"single-process captured run of [epoch-scan]; launches {cap['counts']} "
+              f"(captured x replays) = the per-step run's = [epoch-scan]'s; captures "
+              f"{cap['captures']}; epoch times (s) per-step "
+              f"{[round(h['time'], 4) for h in per['history']]}, captured "
+              f"{[round(h['time'], 4) for h in cap['history']]}", flush=True)
+    prof = rank["jobs"][-1]
+    sync_ok = prof["sync"]
+    check(prof["blocking_wait"] in (None, "0"),
+          f"TORCH_NCCL_BLOCKING_WAIT={prof['blocking_wait']}: a blocking wait cannot "
+          "be captured")
+    check(sync_ok["still_running"] and sync_ok["finite"]
+          and sync_ok["replays"] == int(0.8 * EPOCH_PARENTS) // BATCH,
+          f"dp-nccl-epoch-scan: the captured epoch under sync-debug 'error': {sync_ok}")
+    extra = {}
+    for key, batch in (("vae", BATCH), ("unet", UNET_BATCH)):
+        group, plain = (prof[key][n]["names"] for n in ("captured, group",
+                                                        "captured, no group"))
+        steps = (int(0.8 * (EPOCH_PARENTS if key == "vae" else UNET_PARENTS))
+                 // batch)
+        extra[key] = {}
+        for name in set(group) | set(plain):
+            short = _op_name(name)
+            extra[key][short] = (extra[key].get(short, 0)
+                                 + (group.get(name, 0) - plain.get(name, 0)) / steps)
+        extra[key] = {k: round(v, 3) for k, v in extra[key].items() if v}
+    print(f"[dp-nccl-epoch-scan] profiled train epochs on one state, 1 NCCL rank "
+          f"({card}), in turns: "
+          + " | ".join(_profile_note(m, prof[k]) for m, k in
+                       ((f"VAE at batch {BATCH}", "vae"),
+                        (f"U-Net at batch {UNET_BATCH}", "unet")))
+          + f"; device ops a step the group's captured step has beyond the no-group "
+          f"one (the collectives as NCCL runs them at world 1): VAE {extra['vae']}, "
+          f"U-Net {extra['unet']}"
+          + f"; a captured VAE epoch under sync-debug 'error' returned with the "
+          f"queued sleep kernel still running ({sync_ok['replays']} replays, finite "
+          f"metrics); torchrun launch {secs:.3f} s", flush=True)
+    two = phase_dp_nccl_two_cards(tmp, synthetic, card)
+    return {key: total[key] + two[key] for key in total}
+
+
+def phase_dp_nccl_two_cards(tmp: str, synthetic: str, card: str):
+    """Where two cards are visible: the VAE (batch 20, 10 rows per rank)
+    and the U-Net (10, 5) on two NCCL ranks, one per card, ``--resident
+    --epoch-scan`` against ``--resident``, 2 epochs at ``DP_LR``: each
+    rank's history and rank 0's latest.npz bitwise (the U-Net's CE sums
+    within 1e-5), both ranks' BatchNorm statistics bitwise equal, and the
+    captured history within 2e-2 of a single-process captured run at the
+    same global batch and rate (phase 27's bfloat16 standard).  With one
+    card it prints why it did not run.  Returns the ranks' launches."""
+    import numpy as np
+    import torch
+
+    from icsg3d_torch.apps import train_unet, train_vae
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"[dp-nccl-epoch-scan] two NCCL ranks on two cards: not run, {n} card "
+              "visible (NCCL refuses two ranks on one card)", flush=True)
+        return dict(NO_LAUNCHES)
+    cases = epoch_scan_cases(tmp, synthetic)
+    labels = ("train_vae", "train_unet")
+    jobs = []
+    for label in labels:
+        app, argv = cases[label]
+        for scan in (0, 1):
+            ckpt = os.path.join(tmp, f"dp-nccl2-{app}-{scan}")
+            jobs.append({"kind": "cli", "app": app, "watch": ckpt,
+                         "argv": argv + ["--lr", DP_LR[app], "--dist-backend",
+                                         DP_ONE_BACKEND, "--ckpt", ckpt]
+                         + (["--epoch-scan"] if scan else [])})
+    ranks, arrays, secs = torchrun(2, jobs, tmp, "dp-nccl-2cards")
+    total = dict(NO_LAUNCHES)
+    mods = {"train_vae": train_vae, "train_unet": train_unet}
+    for i, label in enumerate(labels):
+        app, argv = cases[label]
+        per = [r["jobs"][2 * i] for r in ranks]
+        cap = [r["jobs"][2 * i + 1] for r in ranks]
+        for r in range(2):
+            check(not per[r]["refusals"] and not cap[r]["refusals"] and cap[r]["captures"],
+                  f"2 cards {label} rank {r}: {cap[r]['refusals']} {cap[r]['captures']}")
+            check(cap[r]["counts"] == per[r]["counts"],
+                  f"2 cards {label} rank {r}: launches {cap[r]['counts']} vs "
+                  f"{per[r]['counts']}")
+            total = {k: total[k] + per[r]["counts"][k] + cap[r]["counts"][k]
+                     for k in total}
+        seen = _same_training(f"2 cards {label}", [
+            (jobs[2 * i]["watch"], per[0]["history"]),
+            (jobs[2 * i + 1]["watch"], cap[0]["history"])])
+        check(_timeless(cap[1]["history"]) == _timeless(cap[0]["history"]),
+              f"2 cards {label}: the ranks' histories differ")
+        stats = sorted(k for k in arrays[0] if k.startswith(jobs[2 * i + 1]["watch"] + "/"))
+        check(stats and all(np.array_equal(arrays[1][k], arrays[0][k]) for k in stats),
+              f"2 cards {label}: the ranks' BatchNorm statistics differ")
+        one = os.path.join(tmp, f"dp-nccl2-one-{app}")
+        with plots_off():
+            world1 = _quiet(mods[app].main, argv + ["--lr", DP_LR[app], "--ckpt", one,
+                                                    "--epoch-scan"])
+        rels = _history_rel(cap[0]["history"], world1)
+        worst = max(rels, key=rels.get)
+        check(rels[worst] <= 2e-2, f"2 cards {label}: {worst} differs from world 1 by "
+              f"{rels[worst]:.3e} > 2e-2")
+        print(f"[dp-nccl-epoch-scan] {label} on two NCCL ranks, one per card "
+              f"({card}), at lr {DP_LR[app]}: captured vs per-step {seen}, ranks' "
+              f"histories and {len(stats)} BatchNorm buffers equal; launches per rank "
+              f"{cap[0]['counts']} = the per-step run's; within {rels[worst]:.3e} of "
+              f"the single-process captured run (worst {worst}; bound 2e-2); epoch "
+              f"times (s) per-step {[round(h['time'], 4) for h in per[0]['history']]}, "
+              f"captured {[round(h['time'], 4) for h in cap[0]['history']]}, the "
+              f"single-process captured run on one card "
+              f"{[round(h['time'], 4) for h in world1]}", flush=True)
+    print(f"[dp-nccl-epoch-scan] two cards: torchrun launch {secs:.3f} s", flush=True)
+    return total
+
+
 @contextlib.contextmanager
 def f32_cli(on: bool):
     """Inside this block (when ``on``) the trainer CLIs compute in float32
@@ -3552,6 +3936,13 @@ def phase_dp_gloo(tmp: str, synthetic: str, card: str):
     steps = [(m, dt) for dt in ("float32", "bfloat16") for m in ("vae", "unet")]
     jobs += [_dp_step_job(tmp, synthetic, m, "gloo", dt == "bfloat16", dt)
              for m, dt in steps]
+    # --epoch-scan on a gloo group on the card: refused, the per-step values
+    resident = [{"kind": "cli", "app": "train_vae", "dtype": "float32",
+                 "argv": argv("train_vae", "float32", dp_device(), f"dp-gloo-{tag}")
+                 + ["--resident"] + extra,
+                 "watch": os.path.join(tmp, f"dp-gloo-{tag}-float32-train_vae")}
+                for tag, extra in (("resident", []), ("scan", ["--epoch-scan"]))]
+    jobs += resident
     ranks, arrays, secs = torchrun(DP_RANKS, jobs, tmp, "dp-gloo")
     singles = {("train_cgcnn", "float32"): _first_epoch(
         os.path.join(tmp, "cgcnn-formation_energy"))}
@@ -3667,6 +4058,25 @@ def phase_dp_gloo(tmp: str, synthetic: str, card: str):
                      f"world 1 (two processes share the card and gloo goes through "
                      f"the host: not a data-parallel rate)")
         notes.append(note)
+    refusal = ("--epoch-scan: not captured (a gloo process group: it moves CUDA "
+               "tensors through host memory, which a CUDA graph cannot capture); "
+               "running the per-step resident loop")
+    per, scan = ([r["jobs"][len(jobs) - 2 + k] for r in ranks] for k in (0, 1))
+    for r in range(DP_RANKS):
+        need(per[r]["refusals"] == [] and scan[r]["refusals"] == [refusal]
+             and not scan[r]["captures"],
+             f"--epoch-scan over gloo, rank {r}: {scan[r]['refusals']}")
+        need(_timeless(scan[r]["history"]) == _timeless(per[r]["history"])
+             and scan[r]["counts"] == per[r]["counts"],
+             f"--epoch-scan over gloo, rank {r}: history or launches differ from "
+             "--resident's")
+    with np.load(os.path.join(resident[0]["watch"], "latest.npz")) as a, \
+            np.load(os.path.join(resident[1]["watch"], "latest.npz")) as b:
+        same = a.files == b.files and all(np.array_equal(a[k], b[k]) for k in a.files)
+    need(same, "--epoch-scan over gloo: latest.npz differs from --resident's")
+    notes.append(f"train_vae --resident --epoch-scan in float32: each rank printed "
+                 f"'{refusal}', and its history, launches and rank 0's latest.npz "
+                 f"equal --resident's bitwise")
     print(f"[dp-gloo] {DP_RANKS} ranks on cuda:0 over gloo ({card}), launch "
           f"{secs:.3f} s: " + "; ".join(notes))
     check(not fails, "dp-gloo: " + "; ".join(fails))
@@ -3816,10 +4226,11 @@ def main() -> None:
             spatial_counts = phase_train_spatial(tmp, synthetic, card)
         phase_spatial_parity(tmp, synthetic, class_weights, card)
         with plots_off():
-            epoch_counts = phase_epoch_scan(tmp, synthetic, card)
+            epoch_counts, epoch_runs = phase_epoch_scan(tmp, synthetic, card)
         ckpts = phase_train_cgcnn(tmp, card)
         phase_cgcnn_cpu_parity(card)
         dp_counts = [phase_dp_nccl(tmp, synthetic, card),
+                     phase_dp_nccl_epoch_scan(tmp, synthetic, card, epoch_runs),
                      phase_dp_gloo(tmp, synthetic, card),
                      phase_dp_voxelize(tmp, synthetic, card)]
         phase_predict(tmp, ckpts, card)

@@ -15,9 +15,14 @@ parameters; on the CPU in float32.
   eval step is a replay of a CUDA graph captured after one eager warm-up
   step, and the metrics are fetched once (train/graphs.py); the batches,
   noise and updates are ``--resident``'s, so ``--resume`` may switch
-  between the two.  On the CPU the same steps run eagerly.  With a
-  process group, or a mesh on several cards, it prints why it is not
-  captured and runs ``--resident``'s loop.
+  between the two.  On the CPU the same steps run eagerly.  Under
+  torchrun over NCCL (one process per card) each rank uploads its block
+  of every step's global batch and replays the step with its
+  all-reduces (BatchNorm's moments, the gradient, the metrics) inside
+  the graph; the values are the per-step loop's.  It prints why it is
+  not captured, and runs ``--resident``'s loop, in two cases: a gloo
+  group on the card (``--dist-backend gloo``: gloo moves CUDA tensors
+  through host memory) and a ``--spatial`` mesh on several cards.
 - Plots: the best-val plots go to ``<ckpt>/plots`` (at most one refresh
   per ``--plot-every`` epochs) and the loss curves to ``<ckpt>/loss.png``
   where matplotlib imports; elsewhere the run prints ``plots skipped:
@@ -111,7 +116,8 @@ def main(argv=None):
     p.add_argument("--epoch-scan", action="store_true",
                    help="run each resident epoch as replays of a captured "
                         "train and eval step on the card: one permutation "
-                        "upload and one metrics fetch per epoch, the batches "
+                        "upload and one metrics fetch per epoch (under torchrun "
+                        "over NCCL too, each rank on its rows), the batches "
                         "and noise of --resident (requires --resident)")
     p.add_argument("--resident", action="store_true",
                    help="keep the whole train/val split on the device and "

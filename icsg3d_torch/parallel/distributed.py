@@ -23,6 +23,16 @@ process group:
 Only ``all_reduce`` is used, so the collectives run on NCCL and on gloo,
 whose CUDA tensors support nothing else (two ranks on one card share it
 over gloo: NCCL refuses two ranks on one device).
+
+``all_reduce_``, ``all_reduce_sum`` (both directions), ``reduce_gradients``
+and ``mean_over_ranks`` may run inside a captured CUDA graph
+(train/graphs.py, ``--epoch-scan``) over NCCL: they read nothing back on
+the host and make no host tensor, and the communicator exists before any
+capture (the eager warm-up step's first collective makes it).  Under
+capture an NCCL all-reduce is a node of the graph, and its wait a stream
+wait.  ``sync_hosts`` reads its result on the host, so it runs between
+steps only: the checkpoint writer calls it after each save, between
+epochs.
 """
 
 from __future__ import annotations

@@ -37,10 +37,25 @@ step, the launches its capture recorded and its replays, so a caller can
 count what the card ran: recorded x replays.
 
 The host's ``TrainState.step`` advances once per train step run, eager or
-replayed.  A process group (the gradient all-reduce would run inside the
-graph) and a mesh whose cells sit on several devices (a graph belongs to
-one device) are not captured: ``capture_refusal`` names them and the
-trainers keep the per-step loop there.
+replayed.
+
+Under a process group (data parallelism across processes, one per card)
+each rank runs the same program on its block of every step's global
+batch: ``epoch_rows`` uploads columns [r*B/W, (r+1)*B/W) of the epoch's
+(n_steps, B) permutation, JAX's ``P(None, "data")``.  The step's NCCL
+all-reduces (BatchNorm's global moments, their transposes in the
+backward, the flat gradient, the metrics) are captured as nodes of the
+graph: the warm-up step's first collective creates the communicator, and
+``torch.cuda.graph`` synchronises before it captures, so the warm-up's
+collectives have completed.  The capture keeps torch's ``"global"`` error
+mode: on the card's torch (2.11, NCCL 2.28) ProcessGroupNCCL's watchdog
+thread, which queries the events of earlier collectives, invalidated no
+capture.  Every rank replays the same graphs in the same order, since
+every rank takes the same number of steps.  A gloo group on a CUDA model
+(gloo moves CUDA tensors through host memory) and a mesh whose cells sit
+on several devices (a graph belongs to one device) are not captured:
+``capture_refusal`` names them and the trainers keep the per-step loop
+there.  On a CPU model the eager program runs under any group.
 """
 
 from __future__ import annotations
@@ -50,7 +65,9 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from icsg3d_torch.parallel.mesh import shard_batch
 from icsg3d_torch.train.common import mean_metrics
 
 WARMUP_STEPS = 1
@@ -90,25 +107,34 @@ def launch_counts() -> Dict[str, int]:
 
 
 def capture_refusal(state) -> Optional[str]:
-    """Why ``state``'s steps cannot be captured, or None where they can."""
-    if state.group is not None:
-        return ("a process group: the gradient and metric all-reduces across "
-                "processes are not captured")
+    """Why ``state``'s steps cannot be captured, or None where they can
+    (the eager program of a CPU model runs under any group)."""
+    lead = _indexed(next(state.model.parameters()).device)
+    if state.group is not None and lead.type == "cuda":
+        backend = dist.get_backend(state.group)
+        if backend != "nccl":
+            return (f"a {backend} process group: it moves CUDA tensors through "
+                    "host memory, which a CUDA graph cannot capture")
     mesh = getattr(state.model, "spatial_mesh", None)
     if mesh is not None:
         devices = {_indexed(d) for d in mesh.devices.flat}
-        devices.add(_indexed(next(state.model.parameters()).device))
+        devices.add(lead)
         if len(devices) > 1:
             return (f"a mesh on {len(devices)} devices: a CUDA graph belongs to "
                     "one device")
     return None
 
 
-def epoch_rows(order: np.ndarray, n_steps: int, batch: int, device) -> torch.Tensor:
-    """The first ``n_steps * batch`` of ``order`` as (n_steps, batch) int64
-    row indices on ``device``: an epoch's one upload."""
-    rows = np.ascontiguousarray(order[:n_steps * batch].reshape(n_steps, batch))
-    return torch.from_numpy(rows.astype(np.int64)).to(device)
+def epoch_rows(order: np.ndarray, n_steps: int, batch: int, device,
+               group=None) -> torch.Tensor:
+    """The first ``n_steps * batch`` of ``order`` as (n_steps, batch) global
+    rows, and of them this rank's columns [r*B/W, (r+1)*B/W) as int64 row
+    indices on ``device``: an epoch's one upload.  The columns are what
+    JAX's ``P(None, "data")`` puts on data device r, and at each step the
+    rows ``shard_batch`` gives the per-step path."""
+    rows = order[:n_steps * batch].reshape(n_steps, batch)
+    mine = shard_batch(rows.T, group).T
+    return torch.from_numpy(np.ascontiguousarray(mine, dtype=np.int64)).to(device)
 
 
 def run_epoch(programs, state, splits, noise: Optional[Callable] = None):

@@ -290,8 +290,11 @@ def train_unet(
     permutation, the steps as replays of a captured train and eval step
     on a CUDA model (eagerly on the CPU), one fetch of the metric rows;
     the batches are the per-step path's, so the two give the same
-    trajectory.  With a process group, or a mesh on several devices, it
-    says why and runs the per-step loop (train/graphs.capture_refusal).
+    trajectory.  Under an NCCL process group each rank uploads its block
+    of every step's rows and replays the step with its all-reduces
+    captured; with a gloo group on a CUDA model, or a mesh on several
+    devices, it says why and runs the per-step loop
+    (train/graphs.capture_refusal).
     The final ``latest`` save always runs.  With a
     process group in ``state`` each rank trains on its rows of every batch
     and only rank 0 writes checkpoints and plots.  Returns (state,
@@ -336,15 +339,15 @@ def train_unet(
             last_val_batch = {k: v[idx] for k, v in v_dev.items()}
         if epoch_scan:
             programs = make_unet_epoch_fns(model, class_weights)
-            val = (v_dev, epoch_rows(np.arange(n_val), nb_val, batch_size, device)
-                   ) if nb_val else None
+            val = (v_dev, epoch_rows(np.arange(n_val), nb_val, batch_size, device,
+                                     group)) if nb_val else None
 
     for epoch in range(epochs):
         t0 = time.time()
         if epoch_scan and nb_train:
             perm = np.random.default_rng((shuffle_seed, epoch)).permutation(n_train)
             tm, vm = run_epoch(programs, state, [
-                (t_dev, epoch_rows(perm, nb_train, batch_size, device)), val])
+                (t_dev, epoch_rows(perm, nb_train, batch_size, device, group)), val])
             n_steps = nb_train
         else:
             train_mets, val_mets = [], []

@@ -348,9 +348,11 @@ def train_vae(
     on a CUDA model (eagerly on the CPU), one fetch of the metric rows.
     The batches and noise are the per-step path's (train/vae.py:254-267
     of the JAX package), so the two give the same trajectory and
-    ``--resume`` may switch between them.  With a process group, or a
-    mesh on several devices, it says why and runs the per-step loop
-    (train/graphs.capture_refusal).
+    ``--resume`` may switch between them.  Under an NCCL process group
+    each rank uploads its block of every step's rows and replays the
+    step with its all-reduces captured; with a gloo group on a CUDA
+    model, or a mesh on several devices, it says why and runs the
+    per-step loop (train/graphs.capture_refusal).
 
     Batches and noise go to the device of the model's parameters.  The
     noise of step i is the i-th draw of one ``torch.Generator`` seeded
@@ -416,16 +418,17 @@ def train_vae(
                 v_dev, np.arange((nb_val - 1) * batch_size, nb_val * batch_size))
         if epoch_scan:
             programs = make_vae_epoch_fns(model, unet, remat_perceptual)
-            val = (v_dev, epoch_rows(np.arange(n_val), nb_val, batch_size, device)
-                   ) if nb_val else None
+            val = (v_dev, epoch_rows(np.arange(n_val), nb_val, batch_size, device,
+                                     group)) if nb_val else None
 
     for epoch in range(epochs):
         t0 = time.time()
         if epoch_scan and nb_train:
             perm = np.random.default_rng((shuffle_seed, epoch)).permutation(n_train)
-            rows = epoch_rows(perm, nb_train, batch_size, device)
+            rows = epoch_rows(perm, nb_train, batch_size, device, group)
+            # each step's draw as the per-step path takes it
             tm, vm = run_epoch(programs, state, [(t_dev, rows), val], noise=lambda n: (
-                torch.stack([noise(batch_size) for _ in range(n)])))
+                torch.stack([noise(batch_size // world) for _ in range(n)])))
             n_steps = nb_train
         else:
             train_mets, val_mets = [], []

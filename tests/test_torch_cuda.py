@@ -924,9 +924,9 @@ def _epoch_split(n, seed):
             "labels": labels.astype(np.uint8)}
 
 
-def _epoch_models(case, device):
-    """(make state, the frozen U-Net or None, train function, its kwargs)
-    of one epoch-path case, seeded."""
+def _epoch_models(case, device, group=None):
+    """(make state, train function, its kwargs) of one epoch-path case,
+    seeded; ``group`` trains it data-parallel."""
     from icsg3d_torch.config import GridSpec, UNetConfig, VAEConfig
     from icsg3d_torch.models import UNet3D
     from icsg3d_torch.parallel.mesh import make_mesh
@@ -938,14 +938,16 @@ def _epoch_models(case, device):
     if case == "unet":
         fields = ("density", "abc", "labels")
         cfg = UNetConfig(**TINY_UNET)
-        return (lambda: tunet.create_unet_state(cfg, 1e-3, 0, device), tunet.train_unet,
+        return (lambda: tunet.create_unet_state(cfg, 1e-3, 0, device, group=group),
+                tunet.train_unet,
                 dict(log_fn=lambda *_: None, class_weights=[0.0] + [1.0] * 11,
                      resident_data=tuple({k: s[k] for k in fields} for s in (train, val))))
     fields = ("density", "abc", "cond")
     mesh = make_mesh(1, 2, devices=[device, device]) if case == "vae_spatial" else None
     cfg = VAEConfig(grid=GridSpec(d=EPOCH_D), filters=(8, 16), latent_dim=8)
     unet = UNet3D(UNetConfig(**TINY_UNET), torch.Generator().manual_seed(3)).to(device)
-    return (lambda: tvae.create_vae_state(cfg, 5e-4, 0, device, spatial_mesh=mesh),
+    return (lambda: tvae.create_vae_state(cfg, 5e-4, 0, device, spatial_mesh=mesh,
+                                          group=group),
             tvae.train_vae,
             dict(unet=unet, seed=5, remat_perceptual=case == "vae_remat",
                  cache_true_features=case == "vae_cached",
@@ -1050,6 +1052,98 @@ def test_captured_epoch_makes_no_host_sync_on_card(cuda_device, model):
     assert state.step == 2 * EPOCH_N // EPOCH_B
     assert fetched.shape[0] == EPOCH_N // EPOCH_B and bool(torch.isfinite(fetched).all())
     assert graphs.capture_refusal(state) is None
+
+
+@pytest.fixture
+def nccl_world_1(cuda_device, tmp_path):
+    """A one-rank NCCL process group over a file store in tmp_path."""
+    from icsg3d_torch.parallel import distributed
+
+    torch.cuda.set_device(0)
+    group = distributed.initialize("file://" + str(tmp_path / "store"), 1, 0,
+                                   backend="nccl", timeout=120)
+    yield group
+    distributed.shutdown()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["vae", "unet"])
+def test_epoch_capture_under_an_nccl_group_on_card(nccl_world_1, model):
+    """Under a one-rank NCCL group (its all-reduces inside the captured
+    steps) two epochs of ``epoch_scan`` equal the per-step resident loop
+    bitwise (the U-Net's per-class CE sums, ``index_add_`` atomics, within
+    1e-5 relative) with the same kernel launches; then one more epoch's
+    replays make no host sync (sync-debug mode "error") and return while a
+    long kernel queued before them still runs."""
+    import numpy as np
+
+    from icsg3d_torch.train import graphs
+    from icsg3d_torch.train import unet as tunet
+    from icsg3d_torch.train import vae as tvae
+
+    device = torch.device("cuda", 0)
+    make_state, train, kw = _epoch_models(model, device, nccl_world_1)
+    runs = []
+    for scan in (False, True):
+        state = make_state()
+        assert graphs.capture_refusal(state) is None
+        graphs.reset_captures()
+        k.reset_launches()
+        kdw.reset_launches()
+        _, hist = train(state.model, state, None, None, 2, batch_size=EPOCH_B,
+                        shuffle_seed=3, epoch_scan=scan, **kw)
+        torch.cuda.synchronize()
+        counts = graphs.launch_counts()
+        for c in graphs.captures:
+            for key, n in c.launches.items():
+                counts[key] += n * (c.replays - 1)
+        runs.append((hist, state.arrays(), counts, list(graphs.captures)))
+    (h0, a0, c0, _), (h1, a1, c1, caps) = runs
+    assert [c.replays for c in caps] == [2 * 3 - 1, 2 * 2 - 1]
+    assert c1 == c0 and c0["conv3d"] > 0
+    for key in a0:
+        np.testing.assert_array_equal(a0[key], a1[key], err_msg=key)
+    for e0, e1 in zip(h0, h1):
+        for split in ("train", "val"):
+            for key, v in e0[split].items():
+                if key == "ce_per_class":
+                    np.testing.assert_allclose(e1[split][key], v, rtol=1e-5, err_msg=key)
+                else:
+                    assert e1[split][key] == v, (split, key)
+
+    data = {name: torch.from_numpy(v).to(device)
+            for name, v in kw["resident_data"][0].items()}
+    if model == "unet":
+        train_epoch, _ = tunet.make_unet_epoch_fns(state.model)
+    else:
+        train_epoch, _ = tvae.make_vae_epoch_fns(state.model, kw["unet"])
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def noise():
+        return None if model == "unet" else torch.stack([
+            torch.randn((EPOCH_B, 8), generator=gen, device=device)
+            for _ in range(EPOCH_N // EPOCH_B)])
+
+    rows = torch.from_numpy(np.random.default_rng(4).permutation(EPOCH_N).reshape(
+        -1, EPOCH_B)).to(device)
+    train_epoch(state, data, rows, noise())  # warm-up step, capture, replays
+    torch.cuda.synchronize()
+    replays = train_epoch.capture.replays
+    rows = torch.from_numpy(np.random.default_rng(5).permutation(EPOCH_N).reshape(
+        -1, EPOCH_B)).to(device)
+    done = torch.cuda.Event()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.cuda._sleep(2_000_000_000)  # ~1 s of device time at H100 clocks
+        buf = train_epoch(state, data, rows, noise())
+        done.record()
+        still_running = not done.query()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fetched = buf.cpu()
+    assert still_running
+    assert train_epoch.capture.replays == replays + EPOCH_N // EPOCH_B
+    assert bool(torch.isfinite(fetched).all())
 
 
 @pytest.mark.cuda

@@ -35,9 +35,12 @@ per-step resident path, in f32 at d = 8.
   state bitwise equal; ``--resume`` switching paths between two runs
   gives the same checkpoint as either path alone.
 - With a process group (two gloo ranks, as tests/test_torch_distributed.py
-  runs them) ``epoch_scan`` prints why it is not captured and gives the
-  per-step path's values; ``capture_refusal`` for a mesh on two devices;
-  ``EpochProgram`` unit behaviour (rows, noise, counter, layout, rebinding).
+  runs them) on the CPU ``epoch_scan`` runs the epoch program, prints no
+  refusal line and gives the per-step path's values and state bitwise
+  (tests/test_torch_epoch_distributed.py holds it against JAX);
+  ``capture_refusal`` for a gloo group on a CUDA model and a mesh on two
+  devices, none for an NCCL group; ``EpochProgram`` unit behaviour (rows,
+  noise, counter, layout, rebinding).
 """
 
 import json
@@ -288,7 +291,10 @@ def test_epoch_program_buffers_and_rebinding():
     assert program.rows is not bound and program.mets.shape == (2, 3)
 
 
-def test_capture_refusal():
+def test_capture_refusal(monkeypatch):
+    """Refused: a mesh on two devices, a gloo group on a CUDA model.  Not
+    refused: one device, an NCCL group, any group on a CPU model (its
+    program runs eagerly)."""
     model = torch.nn.Linear(1, 1)
     state = TrainState.create(model, 0.1)
     assert graphs.capture_refusal(state) is None
@@ -297,8 +303,20 @@ def test_capture_refusal():
     model.spatial_mesh = Mesh(np.array([[torch.device("cpu"), torch.device("cuda", 1)]],
                                        dtype=object))
     assert "a mesh on 2 devices" in graphs.capture_refusal(state)
+    model.spatial_mesh = None
     state.group = object()
-    assert "process group" in graphs.capture_refusal(state)
+    backends = []
+    monkeypatch.setattr(torch.distributed, "get_backend",
+                        lambda group: backends.append(group) or "gloo")
+    assert graphs.capture_refusal(state) is None  # a CPU model: eager
+    # the same group on a CUDA model (the lookup of the lead device patched)
+    monkeypatch.setattr(graphs, "_indexed", lambda device: torch.device("cuda", 0))
+    assert graphs.capture_refusal(state) == (
+        "a gloo process group: it moves CUDA tensors through host memory, which "
+        "a CUDA graph cannot capture")
+    assert backends == [state.group]
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda group: "nccl")
+    assert graphs.capture_refusal(state) is None
 
 
 def _vae_cli_argv(data, ckpt, *extra):
@@ -365,7 +383,7 @@ def test_cli_epoch_scan_on_a_cpu_mesh(tmp_path, app):
 
 
 # Two ranks: each trains the tiny VAE and U-Net on its rows of a resident
-# split with epoch_scan and without, and saves both histories.
+# split with epoch_scan and without, and saves both histories and states.
 RANK_PROGRAM = r"""
 import json, sys
 import numpy as np
@@ -382,7 +400,7 @@ with np.load(spec["data"]) as f:
     d = {k: f[k] for k in f.files}
 vae_data = {k: d[k] for k in ("density", "abc", "cond")}
 unet_data = {k: d[k] for k in ("density", "abc", "labels")}
-out = {}
+out, arrays = {}, {}
 for scan in (False, True):
     cfg = tcfg.VAEConfig(grid=tcfg.GridSpec(d=8), filters=(4, 8), latent_dim=8,
                          dtype="float32")
@@ -391,6 +409,7 @@ for scan in (False, True):
                              resident_data=(vae_data, vae_data), batch_size=4,
                              shuffle_seed=3, epoch_scan=scan)
     out[f"vae{int(scan)}"] = [{k: v for k, v in h.items() if k != "time"} for h in hist]
+    arrays.update({f"vae{int(scan)}/{k}": v for k, v in state.arrays().items()})
     ucfg = tcfg.UNetConfig(num_classes=12, enc_filters=((4, 8), (8, 8), (8, 16)),
                            bottom_filters=(16, 16), dec_filters=((16, 8), (8, 8), (8, 8)),
                            dtype="float32")
@@ -399,15 +418,18 @@ for scan in (False, True):
                                resident_data=(unet_data, unet_data), batch_size=4,
                                shuffle_seed=3, epoch_scan=scan)
     out[f"unet{int(scan)}"] = [{k: v for k, v in h.items() if k != "time"} for h in hist]
+    arrays.update({f"unet{int(scan)}/{k}": v for k, v in state.arrays().items()})
 with open(f"{spec['dir']}/rank{rank}.json", "w") as f:
     json.dump(out, f)
+np.savez(f"{spec['dir']}/rank{rank}.npz", **arrays)
 distributed.shutdown()
 """
 
 
 def test_process_group_keeps_the_per_step_loop(tmp_path):
-    """With a process group epoch_scan is not captured: each rank says why
-    (once per trainer) and trains exactly as the per-step resident loop."""
+    """With a gloo group on the CPU epoch_scan runs the epoch program
+    (eagerly): no rank prints a refusal line, and each trains exactly as
+    the per-step resident loop, histories and state bitwise."""
     vae = _vae_split()
     unet = tunet.prepare_unet_batch(_raw_batch(n=N, seed=4), NC, device_coords=True)
     np.savez(tmp_path / "data.npz", density=vae["density"], abc=vae["abc"],
@@ -416,12 +438,17 @@ def test_process_group_keeps_the_per_step_loop(tmp_path):
                        "data": str(tmp_path / "data.npz")})
     outs = run_ranks(RANK_PROGRAM, [spec], 2, REPO)
     for r, (stdout, _) in enumerate(outs):
-        lines = [ln for ln in stdout.splitlines() if ln.startswith("--epoch-scan")]
-        assert lines == ["--epoch-scan: not captured (a process group: the gradient "
-                         "and metric all-reduces across processes are not captured); "
-                         "running the per-step resident loop"] * 2, stdout
+        assert not [ln for ln in stdout.splitlines() if ln.startswith("--epoch-scan")], \
+            stdout
         with open(tmp_path / f"rank{r}.json") as f:
             got = json.load(f)
+        states = _read_npz(tmp_path / f"rank{r}.npz")
         for model in ("vae", "unet"):
             assert got[f"{model}1"] == got[f"{model}0"], (r, model)
             assert [h["steps"] for h in got[f"{model}0"]] == [STEPS] * EPOCHS
+            per_step = {k[len(model) + 2:]: v for k, v in states.items()
+                        if k.startswith(f"{model}0/")}
+            assert per_step and int(per_step["step"]) == EPOCHS * STEPS
+            for k, v in per_step.items():
+                np.testing.assert_array_equal(states[f"{model}1/{k}"], v,
+                                              err_msg=f"rank {r} {model} {k}")
